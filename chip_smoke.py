@@ -1,0 +1,498 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero with its traceback:
+
+1. identity: the card's name and power limit (nvidia-smi), torch, CUDA and
+   nvcc versions; then every CUDA kernel is built from this checkout's
+   sources (one nvcc per source, in parallel) and the build time printed.
+2. kernels: each kernel at the main path's shapes (Multiband-MelGAN at full
+   width, 248 mel frames + 2x2 inference padding, batch 8) against its plain
+   PyTorch version on the same inputs, TF32 off; the error must stay within
+   1e-4 of the largest reference magnitude. One JSON line per kernel with
+   its time, the plain version's, a library call's where one exists, and
+   the least time the card could take (bytes at 3.35 TB/s or fp32 FLOPs at
+   67 TFLOP/s, whichever is larger).
+3. serving: random full-width Glow-TTS and Multiband-MelGAN (seeded; the
+   duration head pinned to 6 frames per symbol) saved as port checkpoints,
+   served by the port's HTTP server in a thread; requests of different
+   lengths must return finite, non-silent WAVs of the expected length, the
+   kernel launch counts (zeroed just before) must all rise, and the served
+   audio must match the same Synthesizer run on the CPU (plain versions).
+4. batched: Glow-TTS at batch 128 (128 symbols, 248 frames) then the
+   generator; audio-seconds per second beside the card's name and limit.
+
+The second-last line is the kernels JSON; the last is the ok line.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.parse
+import urllib.request
+
+import numpy as np
+import torch
+
+SEED = 0
+BATCH = 8                  # kernel phase batch
+MEL_FRAMES = 248           # bench.py's geometry
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+FP32_FLOPS_PER_S = 67e12   # H100 SXM, CUDA cores (no tensor cores)
+TOL = 1e-4                 # relative to max |reference|
+
+
+def log(obj):
+    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+def card_identity() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def nvcc_version() -> str:
+    from tts_tpu_torch.ops.cuda.build import _nvcc
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not np.isfinite(err) or err > TOL * scale:
+        raise AssertionError(f"{name}: max |err| {err} > {TOL} * {scale}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels
+# ---------------------------------------------------------------------------
+
+def kernel_phase(dev):
+    from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
+    from tts_tpu_torch.models.vocoder.multiband_melgan import \
+        MultibandMelganGenerator
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+
+    torch.manual_seed(SEED)
+    gen = MultibandMelganGenerator(base_channels=384,
+                                   upsample_factors=(2, 8, 2, 2),
+                                   num_res_blocks=4)
+    sd = fold_weight_norm(gen.state_dict())
+    w = M.pack_generator_params(gen, sd, dev)
+    pad = gen.inference_padding
+    mel = torch.randn(BATCH, MEL_FRAMES, 80, device=dev)
+
+    # the main path's intermediates, produced by the kernels themselves
+    x0 = M.proj_in_cuda(mel, w.proj_in_w, w.proj_in_b, pad)
+    stage_in, stack_in = [], []
+    x = x0
+    for up, stack in zip(w.upsamples, w.stacks):
+        stage_in.append(x)
+        x = M.upsample_cuda(x, up)
+        stack_in.append(x)
+        x = R.residual_stack_nct(x, *stack)
+    tail_in = x
+
+    results = {}
+
+    # proj_in (edge pad + reflect conv k=7)
+    got = M.proj_in_cuda(mel, w.proj_in_w, w.proj_in_b, pad)
+    want = M.proj_in_plain(mel, w.proj_in_w, w.proj_in_b, pad)
+    Tp = MEL_FRAMES + 2 * pad
+    wt = M._proj_in_conv_weight(w.proj_in_w).contiguous()
+    C0, Cm, K = wt.shape
+    padded = torch.nn.functional.pad(
+        torch.nn.functional.pad(mel.transpose(1, 2), (pad, pad),
+                                mode="replicate"), (K // 2, K // 2),
+        mode="reflect").contiguous()
+    results[M.PROJ_IN] = dict(
+        err=check_close(M.PROJ_IN, got, want),
+        ms=cuda_time_ms(lambda: M.proj_in_cuda(mel, w.proj_in_w,
+                                               w.proj_in_b, pad), 20),
+        plain_ms=cuda_time_ms(lambda: M.proj_in_plain(mel, w.proj_in_w,
+                                                      w.proj_in_b, pad), 20),
+        library_ms=cuda_time_ms(lambda: torch.nn.functional.conv1d(
+            padded, wt, w.proj_in_b), 20),
+        bound=bound_ms(nbytes(mel, got, w.proj_in_w, w.proj_in_b),
+                       2.0 * BATCH * Tp * C0 * Cm * K))
+
+    # upsamples (leaky + polyphase transposed conv), summed over the stages
+    res = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nb=0, fl=0.0)
+    for xin, up in zip(stage_in, w.upsamples):
+        got = M.upsample_cuda(xin, up)
+        res["err"] = max(res["err"], check_close(
+            M.UPSAMPLE, got, M.upsample_plain(xin, up)))
+        res["ms"] += cuda_time_ms(lambda: M.upsample_cuda(xin, up), 20)
+        res["plain_ms"] += cuda_time_ms(lambda: M.upsample_plain(xin, up), 5)
+        f = up.factor
+        B, Ci, T = xin.shape
+        Co = 4 * up.w.shape[1]
+        # yardstick: cuDNN's transposed conv of the same size (on leaky(x))
+        lx = torch.nn.functional.leaky_relu(xin, 0.2)
+        conv_w = torch.randn(Ci, Co, 2 * f, device=dev)
+        res["library_ms"] += cuda_time_ms(
+            lambda: torch.nn.functional.conv_transpose1d(
+                lx, conv_w, up.bias, stride=f, padding=up.padding), 20)
+        res["nb"] += nbytes(xin, got, up.w, up.bias)
+        res["fl"] += 2.0 * B * T * f * Co * 2 * Ci
+    res["bound"] = bound_ms(res.pop("nb"), res.pop("fl"))
+    results[M.UPSAMPLE] = res
+
+    # residual stacks: every block of every stage
+    res = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, nb=0, fl=0.0)
+    for stage, (xin, (w1, b1, w2, bout)) in enumerate(zip(stack_in,
+                                                          w.stacks)):
+        got = R.residual_stack_nct(xin, w1, b1, w2, bout)
+        want = xin
+        for j in range(w1.shape[0]):
+            want = R.residual_block_plain(want, w1[j], b1[j], w2[j], bout[j],
+                                          3 ** j)
+        res["err"] = max(res["err"], check_close(R.KERNEL, got, want))
+        ms = cuda_time_ms(
+            lambda: R.residual_stack_nct(xin, w1, b1, w2, bout), 10)
+
+        def plain(x=xin):
+            for j in range(w1.shape[0]):
+                x = R.residual_block_plain(x, w1[j], b1[j], w2[j], bout[j],
+                                           3 ** j)
+            return x
+        plain_ms = cuda_time_ms(plain, 5)
+        B, C, T = xin.shape
+        n = w1.shape[0]
+        # each block reads its input and writes its output once
+        nb = n * (2 * nbytes(xin)) + nbytes(w1, b1, w2, bout)
+        fl = n * 10.0 * B * T * C * C
+        log({"stack_stage": stage, "channels": C, "samples": T, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms(nb, fl)[0]})
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        res["nb"] += nb
+        res["fl"] += fl
+    res["bound"] = bound_ms(res.pop("nb"), res.pop("fl"))
+    results[R.KERNEL] = res
+
+    # tail (leaky + proj_out k=7 + tanh + PQMF synthesis)
+    got = M.tail_cuda(tail_in, w.proj_out_w, w.proj_out_b, w.syn, w.syn_q)
+    want = M.tail_plain(tail_in, w.proj_out_w, w.proj_out_b, w.syn, w.syn_q)
+    B, C, T = tail_in.shape
+    _, K, N = w.proj_out_w.shape
+    J = w.syn.shape[0]
+    results[M.TAIL] = dict(
+        err=check_close(M.TAIL, got, want),
+        ms=cuda_time_ms(lambda: M.tail_cuda(tail_in, w.proj_out_w,
+                                            w.proj_out_b, w.syn, w.syn_q), 20),
+        plain_ms=cuda_time_ms(lambda: M.tail_plain(
+            tail_in, w.proj_out_w, w.proj_out_b, w.syn, w.syn_q), 10),
+        library_ms=None,
+        bound=bound_ms(nbytes(tail_in, got, w.proj_out_w, w.syn),
+                       2.0 * B * T * N * (C * K + J * N)))
+
+    for name, r in results.items():
+        log({"kernel": name, "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+             "library_ms": r["library_ms"], "bound_ms": r["bound"][0],
+             "bound_by": r["bound"][1], "max_abs_err": r["err"],
+             "shapes": f"batch {BATCH}, {MEL_FRAMES}+{2 * pad} mel frames"})
+
+    # the whole generator: kernel chain against the plain chain
+    got = M.megakernel_inference(gen, w, mel)
+    want = _plain_generator(M, R, w, mel, pad)
+    gen_err = check_close("megakernel_inference", got, want)
+    gen_ms = cuda_time_ms(lambda: M.megakernel_inference(gen, w, mel), 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.megakernel_inference(gen, w, mel)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3   # host time of 22 launches
+    torch.cuda.synchronize()
+    log({"generator": "megakernel_inference", "ms": gen_ms,
+         "host_enqueue_ms": enqueue_ms,
+         "plain_ms": cuda_time_ms(lambda: _plain_generator(M, R, w, mel, pad),
+                                  5),
+         "bound_ms": sum(r["bound"][0] for r in results.values()),
+         "max_abs_err": gen_err,
+         "launches_per_call": 1 + len(w.upsamples)
+         + sum(s[0].shape[0] for s in w.stacks) + 1,
+         "audio_s_per_s": BATCH * got.shape[1] / 22050 / (gen_ms / 1e3),
+         "shapes": f"batch {BATCH}, {MEL_FRAMES}+{2 * pad} mel frames"})
+    return results
+
+
+def _plain_generator(M, R, w, mel, pad):
+    x = M.proj_in_plain(mel, w.proj_in_w, w.proj_in_b, pad)
+    for up, (w1, b1, w2, bout) in zip(w.upsamples, w.stacks):
+        x = M.upsample_plain(x, up)
+        for j in range(w1.shape[0]):
+            x = R.residual_block_plain(x, w1[j], b1[j], w2[j], bout[j], 3 ** j)
+    return M.tail_plain(x, w.proj_out_w, w.proj_out_b, w.syn, w.syn_q)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serving
+# ---------------------------------------------------------------------------
+
+def build_models(root: str):
+    """Seeded full-width Glow-TTS and Multiband-MelGAN from the repo's
+    configs, saved as port checkpoints. Returns the checkpoint paths."""
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.models.vocoder.registry import setup_generator
+    from tts_tpu_torch.text import num_symbols
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tts_cfg = os.path.join(here, "configs", "glow_tts_ljspeech.json")
+    voc_cfg = os.path.join(here, "configs", "multiband_melgan.json")
+    torch.manual_seed(SEED)
+    c = load_config(tts_cfg)
+    glow = setup_model(num_symbols(c.get("use_phonemes", False)), 1, c)
+    # random durations are degenerate (expm1 of ~0); pin 6 frames/symbol
+    proj = glow.encoder.duration_predictor.proj
+    with torch.no_grad():
+        proj.weight.zero_()
+        proj.bias.fill_(float(np.log(6.5)))
+    voc = setup_generator(load_config(voc_cfg))
+    paths = {"tts_config": tts_cfg, "vocoder_config": voc_cfg,
+             "tts": os.path.join(root, "glow.pt"),
+             "voc": os.path.join(root, "mbmelgan.pt")}
+    torch.save({"model": glow.state_dict()}, paths["tts"])
+    torch.save({"model": voc.state_dict()}, paths["voc"])
+    return paths
+
+
+def serving_phase(dev, root: str):
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import text_to_seqvec
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.server.server import create_server
+
+    paths = build_models(root)
+    synth = Synthesizer(paths["tts"], paths["tts_config"], paths["voc"],
+                        paths["vocoder_config"], device=dev)
+    assert synth._packed is not None, "vocoder must take the kernel chain"
+    cfg = load_config(paths["tts_config"])
+    hop = synth.vocoder_ap.hop_length
+    texts = ["Hello world!",
+             "The birch canoe slid on the smooth planks.",
+             "Four hours of steady work faced us, and the source of the huge "
+             "river was clear."]
+    server = create_server(synth, port=0, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    served = []
+    try:
+        build.reset_launches()
+        for text in texts:
+            url = (f"http://127.0.0.1:{port}/api/tts?"
+                   + urllib.parse.urlencode({"text": text}))
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(url, timeout=300) as r:
+                status, body = r.status, r.read()
+            ms = (time.perf_counter() - t0) * 1e3
+            assert status == 200 and body[:4] == b"RIFF", (status, body[:16])
+            wav, sr = read_wav(body)
+            frames = 6 * len(text_to_seqvec(text, cfg))
+            frames = -(-frames // 2) * 2
+            expect = (frames * hop if frames % 32 else (frames + 4) * hop)
+            expect += 10000                     # the inter-sentence gap
+            assert len(wav) == expect, (len(wav), expect)
+            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+            served.append(wav)
+            log({"request": text[:40], "status": status, "samples": len(wav),
+                 "mel_frames": frames, "latency_ms": ms})
+        launches = dict(build.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    log({"main_path_launches": launches, "requests": len(texts)})
+    for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+        assert launches.get(name, 0) > 0, f"{name} was not launched"
+
+    # the same request on the CPU (plain versions) as the reference, through
+    # the same 16-bit WAV encoding (1 LSB = 3.1e-5)
+    from tts_tpu_torch.audio.processor import wav_to_bytes
+    cpu = Synthesizer(paths["tts"], paths["tts_config"], paths["voc"],
+                      paths["vocoder_config"], device="cpu")
+    ref, _ = read_wav(wav_to_bytes(cpu.tts(texts[0]), synth.ap.sample_rate))
+    assert len(ref) == len(served[0]), (len(ref), len(served[0]))
+    err = float(np.abs(ref - served[0]).max())
+    assert err < 1e-3, err
+    log({"served_vs_cpu_max_abs_err": err})
+
+    # where a warm request's time goes (B=1, without HTTP); both parts end
+    # in a copy to the host, so the host clock sees the card's work
+    from tts_tpu_torch.infer.synthesis import synthesis
+    for text in texts:
+        t0 = time.perf_counter()
+        mel = synthesis(synth.model, text, cfg, dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        t1 = time.perf_counter()
+        synth._vocode(mel["postnet_outputs"])
+        t2 = time.perf_counter()
+        log({"request_breakdown": text[:40],
+             "text_and_glow_ms": (t1 - t0) * 1e3,
+             "vocoder_ms": (t2 - t1) * 1e3})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: batched throughput
+# ---------------------------------------------------------------------------
+
+def batched_phase(dev, card: str):
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
+    from tts_tpu_torch.models.vocoder.registry import setup_generator
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.manual_seed(SEED)
+    glow = setup_model(128, 1, load_config(
+        os.path.join(here, "configs", "glow_tts_ljspeech.json")))
+    glow = glow.to(dev).eval()
+    glow.store_inverse()
+    voc_cfg = load_config(os.path.join(here, "configs",
+                                       "multiband_melgan.json"))
+    voc = setup_generator(voc_cfg)
+    sd = fold_weight_norm(voc.state_dict())
+    packed = M.pack_generator_params(voc, sd, dev)
+    batch, t_text = 128, 128
+    g = torch.Generator(dev).manual_seed(1)
+    text = torch.randint(1, 128, (batch, t_text), device=dev, generator=g)
+    lens = torch.full((batch,), t_text, dtype=torch.int32, device=dev)
+
+    def run():
+        out = glow.inference(text, lens, noise_scale=0.33,
+                             y_max_length=MEL_FRAMES, generator=g)
+        mel = out["model_outputs"].float().contiguous()
+        return M.megakernel_generator_apply(voc, packed, mel)
+
+    wav = run()
+    torch.cuda.synchronize()
+    assert wav.shape == (batch, MEL_FRAMES * 256, 1)
+    assert torch.isfinite(wav).all()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    times, split = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = glow.inference(text, lens, noise_scale=0.33,
+                             y_max_length=MEL_FRAMES, generator=g)
+        ev[1].record()
+        M.megakernel_generator_apply(
+            voc, packed, out["model_outputs"].float().contiguous())
+        ev[2].record()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    times.sort()
+    dt = times[1]
+    audio_s = batch * MEL_FRAMES * 256 / 22050
+    log({"batched": "glow+megakernel", "batch": batch, "t_text": t_text,
+         "mel_frames": MEL_FRAMES, "s_per_batch": dt,
+         "audio_s_per_s": audio_s / dt, "spread_pct":
+         100 * (times[-1] - times[0]) / dt,
+         "glow_ms": [s[0] for s in split], "vocoder_ms": [s[1] for s in split],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "card": card})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    card = card_identity()
+    log(card)  # as nvidia-smi prints it: name, power limit
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{nvcc_version()}, python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log({"kernel_build_s": built, "wall_s": time.perf_counter() - t0})
+    for name, text in build.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+    results = kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as root:
+        launches = serving_phase(dev, root)
+    batched_phase(dev, card)
+
+    names = {
+        R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",
+                   "tts_tpu/ops/pallas/fused_resstack.py:127"),
+        M.PROJ_IN: ("tts_tpu_torch/ops/cuda/fused_melgan.cu",
+                    "tts_tpu/ops/pallas/fused_melgan.py:925"),
+        M.UPSAMPLE: ("tts_tpu_torch/ops/cuda/fused_melgan.cu",
+                     "tts_tpu/ops/pallas/fused_melgan.py:925"),
+        M.TAIL: ("tts_tpu_torch/ops/cuda/fused_melgan.cu",
+                 "tts_tpu/ops/pallas/fused_melgan.py:925"),
+    }
+    kernels = []
+    for name, (source, replaces) in names.items():
+        r = results[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                        "bound_by": r["bound"][1],
+                        "library_ms": r["library_ms"]})
+    log(card)  # as nvidia-smi prints it: name, power limit
+    log({"kernels": kernels})
+    log({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,205 @@
+"""Carry ``tts_tpu`` (JAX/flax) parameter trees into the port.
+
+The inputs are the flax ``params`` trees as nested dicts of numpy arrays (a
+checkpoint's ``params`` after ``np.asarray`` on each leaf); the outputs are
+the port's ``state_dict``s. The port's modules use Mozilla TTS's key names,
+so ``tts_tpu/compat/torch_port.py`` (Mozilla -> flax) is the inverse of these
+functions, and a Mozilla ``.pth.tar`` state dict loads into the port as it
+is. Layout changes: flax conv kernels (k, in, out) -> torch (out, in, k);
+flax Dense (in, out) -> torch 1x1 conv (out, in, 1); flax ConvTranspose
+(2f, in, out) -> torch ConvTranspose1d (in, out, 2f) with time flipped.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+
+Tree = Dict[str, Any]
+
+
+def _flatten(node: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, child in node.items():
+        path = f"{prefix}{key}"
+        if isinstance(child, dict):
+            out.update(_flatten(child, path + "/"))
+        else:
+            out[path] = np.asarray(child, np.float32)
+    return out
+
+
+def _weight_norm_scales(node: Tree) -> Dict[str, np.ndarray]:
+    """{conv name: scale} of the flax ``WeightNorm_*`` entries of ``node``
+    (their leaves sit at ``<conv path>/kernel/scale``)."""
+    scales = {}
+    for key, child in node.items():
+        if key.startswith("WeightNorm_") and isinstance(child, dict):
+            for path, val in _flatten(child).items():
+                parts = path.split("/")
+                assert parts[-2:] == ["kernel", "scale"], path
+                scales["/".join(parts[:-2])] = val
+    return scales
+
+
+def _conv(kernel: np.ndarray) -> np.ndarray:
+    """flax (k, in, out) -> torch Conv1d (out, in, k)."""
+    return np.ascontiguousarray(np.transpose(kernel, (2, 1, 0)))
+
+
+def _conv_transpose(kernel: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose (2f, in, out) -> torch ConvTranspose1d
+    (in, out, 2f): the inverse of torch_port's time flip."""
+    return np.ascontiguousarray(np.transpose(kernel, (1, 2, 0))[:, :, ::-1])
+
+
+def _norm0(w: np.ndarray) -> np.ndarray:
+    """torch weight_norm(dim=0) magnitude: norm over every axis but 0."""
+    axes = tuple(range(1, w.ndim))
+    return np.sqrt((w.astype(np.float64) ** 2).sum(axis=axes, keepdims=True)
+                   ).astype(np.float32)
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# Glow-TTS
+# ---------------------------------------------------------------------------
+
+def glow_tts_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` GlowTTS params (transformer encoder with prenet,
+    mean_only, single speaker: what its registry builds) ->
+    the port's ``GlowTTS`` state dict. Weight-normed convs transfer as they
+    are: flax WeightNorm on the (k, in, out) kernel norms over all axes but
+    ``out``, which is torch's ``dim=0`` after the transpose."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(dst: str, node: Tree) -> None:
+        sd[f"{dst}.weight"] = _conv(np.asarray(node["kernel"]))
+        sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+    def dense(dst: str, node: Tree) -> None:
+        sd[f"{dst}.weight"] = np.ascontiguousarray(
+            np.asarray(node["kernel"]).T[:, :, None])
+        sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+    def ln(dst: str, node: Tree) -> None:
+        sd[f"{dst}.gamma"] = np.asarray(node["scale"])
+        sd[f"{dst}.beta"] = np.asarray(node["bias"])
+
+    def wn_conv(dst: str, parent: Tree, name: str) -> None:
+        conv(dst, parent[name])
+        g = _weight_norm_scales(parent)[name]
+        sd[f"{dst}.weight_v"] = sd.pop(f"{dst}.weight")
+        sd[f"{dst}.weight_g"] = g.reshape(-1, 1, 1)
+
+    enc = params["encoder"]
+    sd["encoder.emb.weight"] = np.asarray(enc["emb"]["embedding"])
+    pre = enc["prenet"]
+    n_pre = sum(1 for k in pre if k.startswith("conv_"))
+    for i in range(n_pre):
+        conv(f"encoder.pre.conv_layers.{i}", pre[f"conv_{i}"])
+        ln(f"encoder.pre.norm_layers.{i}", pre[f"ln_{i}"])
+    conv("encoder.pre.proj", pre["proj"])
+    tr = enc["encoder"]
+    n_layers = sum(1 for k in tr if k.startswith("attn_"))
+    for i in range(n_layers):
+        a, dst = tr[f"attn_{i}"], f"encoder.encoder.attn_layers.{i}"
+        for ours, theirs in (("q", "conv_q"), ("k", "conv_k"),
+                             ("v", "conv_v"), ("out", "conv_o")):
+            dense(f"{dst}.{theirs}", a[ours])
+        if "emb_rel_k" in a:
+            sd[f"{dst}.emb_rel_k"] = np.asarray(a["emb_rel_k"])[None]
+            sd[f"{dst}.emb_rel_v"] = np.asarray(a["emb_rel_v"])[None]
+        ln(f"encoder.encoder.norm_layers_1.{i}", tr[f"ln1_{i}"])
+        conv(f"encoder.encoder.ffn_layers.{i}.conv_1", tr[f"ffn_{i}"]["conv1"])
+        conv(f"encoder.encoder.ffn_layers.{i}.conv_2", tr[f"ffn_{i}"]["conv2"])
+        ln(f"encoder.encoder.norm_layers_2.{i}", tr[f"ln2_{i}"])
+    conv("encoder.proj_m", enc["proj_mean"])
+    dp, dst = enc["duration_predictor"], "encoder.duration_predictor"
+    conv(f"{dst}.conv_1", dp["conv1"])
+    ln(f"{dst}.norm_1", dp["ln1"])
+    conv(f"{dst}.conv_2", dp["conv2"])
+    ln(f"{dst}.norm_2", dp["ln2"])
+    conv(f"{dst}.proj", dp["proj"])
+
+    dec = params["decoder"]
+    n_blocks = sum(1 for k in dec if k.startswith("actnorm_"))
+    for i in range(n_blocks):
+        base = f"decoder.flows.{3 * i}"
+        sd[f"{base}.logs"] = np.asarray(dec[f"actnorm_{i}"]["logs"])[None, :, None]
+        sd[f"{base}.bias"] = np.asarray(dec[f"actnorm_{i}"]["bias"])[None, :, None]
+        sd[f"decoder.flows.{3 * i + 1}.weight"] = np.asarray(
+            dec[f"invconv_{i}"]["weight"])
+        cp, cdst = dec[f"coupling_{i}"], f"decoder.flows.{3 * i + 2}"
+        wn_conv(f"{cdst}.start", cp, "start")
+        conv(f"{cdst}.end", cp["end"])
+        wn = cp["wn"]
+        n_wn = sum(1 for k in wn if k.startswith("in_"))
+        for j in range(n_wn):
+            wn_conv(f"{cdst}.wn.in_layers.{j}", wn, f"in_{j}")
+            wn_conv(f"{cdst}.wn.res_skip_layers.{j}", wn, f"res_skip_{j}")
+    return _tensors(sd)
+
+
+# ---------------------------------------------------------------------------
+# MelGAN family
+# ---------------------------------------------------------------------------
+
+def _folded_kernels(node: Tree) -> Tree:
+    """Copy of ``node`` with every flax WeightNorm scale folded into its
+    kernel (≙ tts_tpu/models/vocoder/fold.py::fold_weight_norm): norm over
+    every kernel axis but the last."""
+    if not isinstance(node, dict):
+        return np.asarray(node, np.float32)
+    scales = _weight_norm_scales(node)
+    out = {k: _folded_kernels(v) for k, v in node.items()
+           if not k.startswith("WeightNorm_")}
+    for target, scale in scales.items():
+        leaf = out
+        for part in target.split("/"):
+            leaf = leaf[part]
+        kernel = leaf["kernel"]
+        axes = tuple(range(kernel.ndim - 1))
+        norm = np.sqrt(np.sum(kernel.astype(np.float64) ** 2, axis=axes,
+                              keepdims=True))
+        leaf["kernel"] = (kernel * (scale / np.maximum(norm, 1e-12))
+                          ).astype(np.float32)
+    return out
+
+
+def melgan_state_dict_from_jax(params: Tree, upsample_factors: Sequence[int],
+                               num_res_blocks: int
+                               ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` MelGAN-family generator params (weight-normed or already
+    folded) -> the port's ``MelganGenerator`` state dict in Mozilla's
+    ``layers.N`` layout with ``weight_v``/``weight_g``. Weight norm is folded
+    first: flax norms a ConvTranspose kernel per output channel, torch's
+    ``dim=0`` per input channel, so the pair cannot transfer verbatim."""
+    p = _folded_kernels(params)
+    sd: Dict[str, np.ndarray] = {}
+
+    def put(dst: str, weight: np.ndarray, bias: np.ndarray) -> None:
+        sd[f"{dst}.weight_v"] = weight
+        sd[f"{dst}.weight_g"] = _norm0(weight)
+        sd[f"{dst}.bias"] = np.asarray(bias)
+
+    def conv(dst: str, node: Tree) -> None:
+        put(dst, _conv(node["kernel"]), node["bias"])
+
+    conv("layers.1", p["proj_in"]["conv"])
+    for i in range(len(upsample_factors)):
+        up = p[f"upsample_{i}"]
+        put(f"layers.{3 + 3 * i}", _conv_transpose(up["kernel"]), up["bias"])
+        st, dst = p[f"resstack_{i}"], f"layers.{4 + 3 * i}"
+        for j in range(num_res_blocks):
+            conv(f"{dst}.blocks.{j}.2", st[f"block_{j}_conv1"]["conv"])
+            conv(f"{dst}.blocks.{j}.4", st[f"block_{j}_conv2"]["conv"])
+            conv(f"{dst}.shortcuts.{j}", st[f"block_{j}_shortcut"])
+    conv(f"layers.{4 + 3 * len(upsample_factors)}", p["proj_out"]["conv"])
+    return _tensors(sd)

@@ -1,0 +1,79 @@
+"""End-to-end synthesis helper: text -> id sequence -> model -> mel
+(≙ tts_tpu/infer/synthesis.py: ``text_to_seqvec``, ``bucket_text_length``,
+the Glow branch of ``run_model``, and ``synthesis``). PyTorch runs eagerly,
+so there is no compiled-function cache."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from tts_tpu_torch.text import phoneme_to_sequence, text_to_sequence
+
+
+def text_to_seqvec(text: str, c: Dict, tp=None) -> np.ndarray:
+    if c.get("use_phonemes", False):
+        seq = phoneme_to_sequence(
+            text, c.get("text_cleaner", "phoneme_cleaners"),
+            language=c.get("phoneme_language", "en-us"),
+            enable_eos_bos=c.get("enable_eos_bos_chars", False), tp=tp)
+    else:
+        seq = text_to_sequence(text, c.get("text_cleaner", "english_cleaners"),
+                               tp=tp)
+    return np.asarray(seq, dtype=np.int32)
+
+
+TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
+
+
+def bucket_text_length(n: int, buckets=TEXT_BUCKETS) -> int:
+    """Smallest bucket >= n. Kept from tts_tpu so that served audio matches
+    it; masked attention makes the padding inert."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+def run_model(model, inputs: torch.Tensor, c: Dict,
+              max_decoder_steps: Optional[int] = None,
+              generator: Optional[torch.Generator] = None,
+              text_lengths: Optional[torch.Tensor] = None
+              ) -> Dict[str, torch.Tensor]:
+    """Model-family dispatch; only Glow-TTS is ported."""
+    model_name = c.get("model", "tacotron2").lower()
+    if model_name != "glow_tts":
+        raise NotImplementedError(f"{model_name} is not ported yet")
+    out = model.inference(
+        inputs, text_lengths,
+        noise_scale=c.get("inference_noise_scale", 0.33),
+        length_scale=c.get("length_scale", 1.0),
+        y_max_length=max_decoder_steps or 1024, generator=generator)
+    out["postnet_outputs"] = out["model_outputs"]
+    return out
+
+
+def synthesis(model, text: str, c: Dict, device: torch.device, *,
+              max_decoder_steps: Optional[int] = None, tp=None,
+              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """Text -> normalized mel of the valid frames: 'postnet_outputs'
+    (T, n_mels) numpy, and 'alignments' (T_y, T_x)."""
+    seq = text_to_seqvec(text, c, tp=tp)
+    n = len(seq)
+    text_lengths = None
+    if c.get("bucket_text", True):
+        b = bucket_text_length(n)
+        if b > n:
+            seq = np.pad(seq, (0, b - n))
+        text_lengths = torch.tensor([n], dtype=torch.int32, device=device)
+    inputs = torch.from_numpy(seq.astype(np.int64))[None].to(device)
+    out = run_model(model, inputs, c, max_decoder_steps, generator,
+                    text_lengths=text_lengths)
+    postnet = out["postnet_outputs"][0].float().cpu().numpy()
+    n_valid = int(out["mel_lengths"][0])
+    if n_valid > 0:
+        postnet = postnet[:n_valid]
+    return {"postnet_outputs": postnet,
+            "alignments": out["alignments"][0].cpu().numpy()}

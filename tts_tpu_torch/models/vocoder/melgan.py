@@ -1,0 +1,128 @@
+"""MelGAN generator, plain PyTorch (≙ tts_tpu/models/vocoder/melgan.py:
+``WNConv``, ``ResidualStack``, ``MelganGenerator``), in (B, C, T) layout.
+
+The module tree is Mozilla TTS's (``layers`` = reflect pad, proj_in, then per
+stage [LeakyReLU, ConvTranspose1d, ResidualStack], then LeakyReLU, reflect
+pad, proj_out, tanh; ``blocks.j.{2,4}`` and ``shortcuts.j`` in each stack),
+so Mozilla state dicts load unchanged and ``tts_tpu``'s ``port_melgan`` reads
+the port's. This is the plain version of the two CUDA kernels in
+``ops/cuda/``: tests and ``chip_smoke.py`` hold the kernels against it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tts_tpu_torch.models.weight_norm import weight_norm
+
+NEGATIVE_SLOPE = 0.2
+
+
+def conv_transpose_same_padding(factor: int) -> int:
+    """The ``padding`` that makes torch's ConvTranspose1d(kernel 2f, stride
+    f) place its taps as flax ``ConvTranspose(padding="SAME")`` does.
+
+    lax.conv_transpose SAME pads the stride-dilated input by
+    pad_a = ceil((3f - 2) / 2) on the left (3f/2 - 1 for even f), while
+    torch's output n reads input (n + padding - k) / f, so padding =
+    2f - 1 - pad_a (f/2 for even f, Mozilla's choice). Odd f gives one extra
+    output sample, which ``UpsampleConvTranspose1d`` drops."""
+    pad_a = -(-(3 * factor - 2) // 2)
+    return 2 * factor - 1 - pad_a
+
+
+class UpsampleConvTranspose1d(nn.ConvTranspose1d):
+    """Transposed conv (kernel 2f, stride f) with exact f-times upsampling
+    and flax SAME tap placement."""
+
+    def __init__(self, in_channels: int, out_channels: int, factor: int):
+        super().__init__(in_channels, out_channels, 2 * factor, stride=factor,
+                         padding=conv_transpose_same_padding(factor))
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x)[..., : x.shape[-1] * self.factor]
+
+
+def _maybe_wn(module: nn.Module, use_weight_norm: bool) -> nn.Module:
+    return weight_norm(module) if use_weight_norm else module
+
+
+class ResidualStack(nn.Module):
+    """n blocks of [LReLU, reflect pad, dilated conv (k=3, d=3^j), LReLU,
+    1x1 conv] + a 1x1 shortcut per block."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 num_res_blocks: int = 3, use_weight_norm: bool = True):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.blocks = nn.ModuleList()
+        self.shortcuts = nn.ModuleList()
+        for j in range(num_res_blocks):
+            d = kernel_size ** j
+            self.blocks.append(nn.Sequential(
+                nn.LeakyReLU(NEGATIVE_SLOPE),
+                nn.ReflectionPad1d((kernel_size - 1) // 2 * d),
+                _maybe_wn(nn.Conv1d(channels, channels, kernel_size,
+                                    dilation=d), use_weight_norm),
+                nn.LeakyReLU(NEGATIVE_SLOPE),
+                _maybe_wn(nn.Conv1d(channels, channels, 1), use_weight_norm)))
+            self.shortcuts.append(
+                _maybe_wn(nn.Conv1d(channels, channels, 1), use_weight_norm))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block, shortcut in zip(self.blocks, self.shortcuts):
+            x = shortcut(x) + block(x)
+        return x
+
+
+class MelganGenerator(nn.Module):
+    """mel (B, in, T) -> (B, out, T * prod(upsample_factors))."""
+
+    def __init__(self, in_channels: int = 80, out_channels: int = 1,
+                 proj_kernel: int = 7, base_channels: int = 512,
+                 upsample_factors: Sequence[int] = (8, 8, 2, 2),
+                 res_kernel: int = 3, num_res_blocks: int = 3,
+                 inference_padding: int = 2, use_weight_norm: bool = True):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.proj_kernel = proj_kernel
+        self.base_channels = base_channels
+        self.upsample_factors = tuple(upsample_factors)
+        self.num_res_blocks = num_res_blocks
+        self.inference_padding = inference_padding
+        self.use_weight_norm = use_weight_norm
+        pad = (proj_kernel - 1) // 2
+        layers = [nn.ReflectionPad1d(pad),
+                  _maybe_wn(nn.Conv1d(in_channels, base_channels, proj_kernel),
+                            use_weight_norm)]
+        ch = base_channels
+        for f in self.upsample_factors:
+            layers += [nn.LeakyReLU(NEGATIVE_SLOPE),
+                       _maybe_wn(UpsampleConvTranspose1d(ch, ch // 2, f),
+                                 use_weight_norm),
+                       ResidualStack(ch // 2, res_kernel, num_res_blocks,
+                                     use_weight_norm)]
+            ch //= 2
+        layers += [nn.LeakyReLU(NEGATIVE_SLOPE), nn.ReflectionPad1d(pad),
+                   _maybe_wn(nn.Conv1d(ch, out_channels, proj_kernel),
+                             use_weight_norm),
+                   nn.Tanh()]
+        self.layers = nn.Sequential(*layers)
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        return self.layers(c)
+
+    def pad_inference(self, c: torch.Tensor) -> torch.Tensor:
+        """Edge-replicate ``inference_padding`` frames on both sides."""
+        p = self.inference_padding
+        return F.pad(c, (p, p), mode="replicate") if p else c
+
+    @torch.no_grad()
+    def inference(self, c: torch.Tensor) -> torch.Tensor:
+        return self(self.pad_inference(c))

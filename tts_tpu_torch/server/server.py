@@ -1,0 +1,110 @@
+"""HTTP TTS server: demo page, GET /api/tts?text=... -> WAV bytes, /health
+(≙ tts_tpu/server/server.py), over the port's ``Synthesizer``.
+
+Run on the card:
+    python -m tts_tpu_torch.server.server --tts_checkpoint glow.pt \\
+        --tts_config configs/glow_tts_ljspeech.json \\
+        --vocoder_checkpoint mbmelgan.pt \\
+        --vocoder_config configs/multiband_melgan.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+from tts_tpu_torch.audio.processor import wav_to_bytes
+
+_DEMO_PAGE = """<!DOCTYPE html>
+<html>
+<head><title>tts_tpu_torch demo</title></head>
+<body style="font-family: sans-serif; max-width: 640px; margin: 40px auto;">
+  <h1>tts_tpu_torch</h1>
+  <p>Type a sentence and press Speak.</p>
+  <input id="text" size="60" value="Hello, world!"/>
+  <button onclick="speak()">Speak</button>
+  <p id="status"></p>
+  <audio id="audio" controls></audio>
+  <script>
+    function speak() {
+      const t = document.getElementById('text').value;
+      document.getElementById('status').textContent = 'synthesizing...';
+      const audio = document.getElementById('audio');
+      audio.src = '/api/tts?text=' + encodeURIComponent(t);
+      audio.onloadeddata = () => {
+        document.getElementById('status').textContent = '';
+        audio.play();
+      };
+    }
+  </script>
+</body>
+</html>"""
+
+
+def make_handler(synthesizer):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # quiet
+            pass
+
+        def _send(self, body: bytes, content_type: str) -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            url = urlparse(self.path)
+            if url.path == "/":
+                self._send(_DEMO_PAGE.encode(), "text/html")
+            elif url.path == "/api/tts":
+                text = parse_qs(url.query).get("text", [""])[0]
+                if not text:
+                    self.send_error(400, "missing text parameter")
+                    return
+                try:
+                    wav = synthesizer.tts(text)
+                except Exception as e:  # surface synthesis errors as 500s
+                    self.send_error(500, str(e))
+                    return
+                self._send(wav_to_bytes(wav, synthesizer.ap.sample_rate),
+                           "audio/wav")
+            elif url.path == "/health":
+                self._send(json.dumps({"status": "ok"}).encode(),
+                           "application/json")
+            else:
+                self.send_error(404)
+
+    return Handler
+
+
+def create_server(synthesizer, port: int = 5002,
+                  host: str = "0.0.0.0") -> ThreadingHTTPServer:
+    return ThreadingHTTPServer((host, port), make_handler(synthesizer))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--tts_checkpoint", required=True)
+    parser.add_argument("--tts_config", required=True)
+    parser.add_argument("--vocoder_checkpoint", required=True)
+    parser.add_argument("--vocoder_config", required=True)
+    parser.add_argument("--port", type=int, default=5002)
+    parser.add_argument("--device", default=None,
+                        help="torch device; CUDA unless given (e.g. cpu)")
+    args = parser.parse_args(argv)
+
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+
+    synth = Synthesizer(args.tts_checkpoint, args.tts_config,
+                        args.vocoder_checkpoint, args.vocoder_config,
+                        device=args.device)
+    server = create_server(synth, args.port)
+    print(f" > Serving on http://localhost:{args.port}", flush=True)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()
