@@ -22,6 +22,20 @@ Phases, in order; any failure exits non-zero with its traceback:
    audio must match the same Synthesizer run on the CPU (plain versions).
 4. batched: Glow-TTS at batch 128 (128 symbols, 248 frames) then the
    generator; audio-seconds per second beside the card's name and limit.
+5. mas: the monotonic-alignment-search kernel at the training path's shapes
+   (B=32, T_x=192, T_y=864, ragged lengths from the seed), once on random
+   log-likelihoods and once on integers full of exact ties; its path must
+   equal the plain version's exactly. One JSON line with its time, the plain
+   version's and the byte bound.
+6. training: a synthetic LJSpeech-format corpus (96 utterances of 25-185
+   characters, tone plus noise at ~15 characters per second, 1.5-10 s) and
+   configs/glow_tts_ljspeech.json at full width, batch 32, 2 epochs, trained
+   through bin/train_glow_tts on the card. Every loss must be finite, the
+   parameters must change, the MAS launch count (zeroed just before) must be
+   steps + 1 (the + 1 is the DDI pass), and the last checkpoint must serve
+   finite, non-silent audio through the Synthesizer. Prints ms per step and
+   MAS's device ms per step, and the split of one step (forward, backward,
+   optimizer).
 
 The second-last line is the kernels JSON; the last is the ok line.
 """
@@ -438,6 +452,255 @@ def batched_phase(dev, card: str):
          "card": card})
 
 
+# ---------------------------------------------------------------------------
+# phase 5: monotonic alignment search
+# ---------------------------------------------------------------------------
+
+MAS_SHAPE = (32, 192, 864)     # the training phase's largest batch
+
+
+def mas_inputs(dev, ties: bool):
+    B, T_x, T_y = MAS_SHAPE
+    g = torch.Generator().manual_seed(SEED)
+    t_xs = torch.randint(T_x // 2, T_x + 1, (B,), generator=g)
+    t_ys = torch.maximum(4 * t_xs, torch.randint(T_y // 2, T_y + 1, (B,),
+                                                 generator=g)).clamp(max=T_y)
+    t_xs[0], t_ys[0] = T_x, T_y
+    if ties:
+        value = torch.randint(-3, 4, (B, T_x, T_y), generator=g).float()
+    else:
+        value = -40.0 + 10.0 * torch.randn(B, T_x, T_y, generator=g)
+    mask = ((torch.arange(T_x)[None, :, None] < t_xs[:, None, None])
+            & (torch.arange(T_y)[None, None, :] < t_ys[:, None, None]))
+    return value.to(dev), mask.float().to(dev)
+
+
+def mas_phase(dev):
+    from tts_tpu_torch.ops.cuda import mas as MAS
+    from tts_tpu_torch.ops.mas import maximum_path_torch
+
+    res = dict(ms=None, plain_ms=None, library_ms=None)
+    for ties in (False, True):
+        value, mask = mas_inputs(dev, ties)
+        got = MAS.maximum_path_cuda(value, mask)
+        want = maximum_path_torch(value, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"MAS kernel path differs from the plain version at "
+                f"{int((got != want).sum())} cells (ties={ties})")
+        assert torch.equal(got.sum(dim=1), mask[:, 0, :])
+        err = float((got - want).abs().max())
+        ms = cuda_time_ms(lambda: MAS.maximum_path_cuda(value, mask), 20)
+        plain_ms = cuda_time_ms(lambda: maximum_path_torch(value, mask), 2,
+                                warmup=1)
+        B, T_x, T_y = value.shape
+        cells = int((mask > 0).sum())
+        # the function's own traffic: value read inside the lengths, the
+        # whole mask read, the whole path written (the kernel's decision
+        # scratch is its own choice, not counted); three fp32 operations per
+        # cell inside the lengths
+        bound = bound_ms(4 * cells + (4 + 4) * B * T_x * T_y, 3.0 * cells)
+        log({"kernel": MAS.KERNEL, "ties": ties, "kernel_ms": ms,
+             "plain_ms": plain_ms, "library_ms": None,
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "max_abs_err": err, "cells_in_lengths": cells,
+             "shapes": f"B={B}, T_x={T_x}, T_y={T_y}"})
+        if not ties:
+            res.update(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Glow-TTS training
+# ---------------------------------------------------------------------------
+
+SENTENCES = [
+    "The birch canoe slid on the smooth planks.",
+    "Glue the sheet to the dark blue background.",
+    "It's easy to tell the depth of a well.",
+    "These days a chicken leg is a rare dish.",
+    "Rice is often served in round bowls.",
+    "The juice of lemons makes fine punch.",
+    "The box was thrown beside the parked truck.",
+    "The hogs were fed chopped corn and garbage.",
+    "Four hours of steady work faced us.",
+    "A large size in stockings is hard to sell.",
+    "The boy was there when the sun rose.",
+    "A rod is used to catch pink salmon.",
+    "The source of the huge river is the clear spring.",
+    "Kick the ball straight and follow through.",
+    "Help the woman get back to her feet.",
+    "A pot of tea helps to pass the evening.",
+]
+N_UTTERANCES = 96
+SAMPLE_RATE = 22050
+
+
+def write_corpus(root: str) -> str:
+    """LJSpeech layout: metadata.csv (id|text|text) and wavs/*.wav. Texts of
+    25-185 characters cut from the sentences at word boundaries; audio a
+    gliding harmonic tone plus noise, len(text) / 15 seconds within
+    [1.5, 10]."""
+    from tts_tpu_torch.audio.processor import write_wav
+
+    rng = np.random.default_rng(SEED)
+    words = " ".join(SENTENCES).split()
+    wav_dir = os.path.join(root, "wavs")
+    os.makedirs(wav_dir, exist_ok=True)
+    lines = []
+    for i, target in enumerate(np.linspace(25, 185, N_UTTERANCES)):
+        start, text = (7 * i) % len(words), ""
+        while len(text) < target - 4:
+            text = (text + " " + words[start % len(words)]).strip()
+            start += 1
+        dur = float(np.clip(len(text) / 15.0, 1.5, 10.0))
+        t = np.arange(int(dur * SAMPLE_RATE)) / SAMPLE_RATE
+        f0 = rng.uniform(100, 220) * (1 + 0.1 * np.sin(2 * np.pi * 0.5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+        y = sum(0.3 / k * np.sin(k * phase) for k in (1, 2, 3))
+        y = y + 0.03 * rng.standard_normal(len(t))
+        name = f"LJ900-{i:04d}"
+        write_wav(os.path.join(wav_dir, name + ".wav"), y.astype(np.float32),
+                  SAMPLE_RATE)
+        lines.append(f"{name}|{text}|{text}")
+    with open(os.path.join(root, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return root
+
+
+def training_phase(dev, root: str, card: str):
+    from tts_tpu_torch.bin.train_glow_tts import main as train_main
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models import glow_tts as G
+    from tts_tpu_torch.models.glow.flows import ActNorm
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import mas as MAS
+    from tts_tpu_torch.text import num_symbols
+    from tts_tpu_torch.train.checkpoint import latest_checkpoint
+    from tts_tpu_torch.train.trainer_glow import batch_to_device
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = write_corpus(os.path.join(root, "LJSpeech"))
+    c = load_config(os.path.join(here, "configs", "glow_tts_ljspeech.json"))
+    c["datasets"] = [{"name": "ljspeech", "path": corpus,
+                      "meta_file_train": "metadata.csv"}]
+    c["phoneme_cache_path"] = os.path.join(root, "phoneme_cache")
+    c["epochs"] = 2
+    cfg_path = os.path.join(root, "glow_tts.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+
+    # MAS's device time inside the training forward: events around each call
+    mas_events = []
+    plain_call = G.maximum_path
+
+    def timed_maximum_path(value, mask):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = plain_call(value, mask)
+        ev[1].record()
+        mas_events.append((ev, tuple(value.shape)))
+        return out
+
+    G.maximum_path = timed_maximum_path
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_main(["--config_path", cfg_path, "--output_path",
+                              os.path.join(root, "runs")])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        G.maximum_path = plain_call
+    steps = trainer.global_step
+    log({"training_launches": launches, "steps": steps})
+    assert steps >= 2, steps
+    assert launches.get(MAS.KERNEL, 0) == steps + 1, (launches, steps)
+    losses = [s["loss"] for s in trainer.step_stats]
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+
+    # the parameters moved from their seeded init (ActNorms aside: DDI
+    # sets those)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(c.get("seed", 54321))
+        init = setup_model(num_symbols(c["use_phonemes"]), 1, c).state_dict()
+    actnorm = {f"{n}.{k}" for n, m in trainer.model.named_modules()
+               if isinstance(m, ActNorm) for k in ("logs", "bias")}
+    moved = {n: float((p.detach().cpu() - init[n]).abs().max())
+             for n, p in trainer.model.named_parameters() if n not in actnorm}
+    n_moved = sum(d > 0 for d in moved.values())
+    assert n_moved > 0, "no parameter changed"
+
+    step_s = [s["step_time"] for s in trainer.step_stats]
+    mas_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in mas_events]
+    log({"training": "glow_tts full width", "batch": c["batch_size"],
+         "steps": steps, "losses": losses, "wall_s": wall_s,
+         "ms_per_step_median_after_first": 1e3 * float(np.median(step_s[1:])),
+         "ms_per_step": [1e3 * t for t in step_s],
+         "loader_ms": [1e3 * s["loader_time"] for s in trainer.step_stats],
+         "mas_ms_per_call": mas_ms,
+         "mas_ms_per_step_median": float(np.median(mas_ms[1:])),
+         "mas_shapes": [shape for _, shape in mas_events],
+         "params_moved": f"{n_moved}/{len(moved)}",
+         "max_param_change": max(moved.values()),
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "card": card})
+
+    # the last checkpoint serves through the Synthesizer
+    paths = build_models(root)
+    synth = Synthesizer(latest_checkpoint(trainer.output_path), cfg_path,
+                        paths["voc"], paths["vocoder_config"], device=dev)
+    wav = synth.tts("The birch canoe slid on the smooth planks.")
+    assert wav.ndim == 1 and np.isfinite(wav).all()
+    assert np.abs(wav).max() > 1e-3, float(np.abs(wav).max())
+    log({"served_from_training_checkpoint": True, "samples": len(wav),
+         "peak": float(np.abs(wav).max())})
+
+    # where a step's time goes, on one batch of the longest utterances:
+    # device time between events, and the host's time to enqueue each part
+    # (the optimizer's non-finite check waits for the device once)
+    model, opt = trainer.model.train(), trainer.optimizer
+    ds = trainer.dataset
+    batch = batch_to_device(ds.collate([ds[i] for i in range(
+        len(ds) - c["batch_size"], len(ds))]), dev)
+    split = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        host = [0.0] * 4
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        host[0] = time.perf_counter()
+        ev[0].record()
+        out = model(batch["text"], batch["text_lengths"], batch["mel"],
+                    batch["mel_lengths"])
+        ev[1].record()
+        host[1] = time.perf_counter()
+        G.glow_tts_loss(out, batch["text_lengths"])["loss"].backward()
+        ev[2].record()
+        host[2] = time.perf_counter()
+        opt.step()
+        ev[3].record()
+        host[3] = time.perf_counter()
+        torch.cuda.synchronize()
+        split.append(([ev[i].elapsed_time(ev[i + 1]) for i in range(3)],
+                      [1e3 * (host[i + 1] - host[i]) for i in range(3)]))
+    parts = ("forward_incl_mas", "loss_and_backward", "optimizer")
+    log({"training_step_split_ms": {
+            p: {"device": [d[i] for d, _ in split],
+                "host_enqueue": [h[i] for _, h in split]}
+            for i, p in enumerate(parts)},
+         "batch_shapes": {"text": list(batch["text"].shape),
+                          "mel": list(batch["mel"].shape)},
+         "card": card})
+    return {"launches": launches[MAS.KERNEL], "steps": steps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -466,6 +729,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         launches = serving_phase(dev, root)
     batched_phase(dev, card)
+    mas = mas_phase(dev)
+    with tempfile.TemporaryDirectory() as root:
+        trained = training_phase(dev, root, card)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",
@@ -486,6 +752,14 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1],
                         "library_ms": r["library_ms"]})
+    from tts_tpu_torch.ops.cuda import mas as MAS
+    kernels.append({"name": MAS.KERNEL, "route": "cuda",
+                    "source": "tts_tpu_torch/ops/cuda/mas.cu",
+                    "replaces": "tts_tpu/ops/pallas/mas_kernel.py:95",
+                    "launches": trained["launches"],
+                    "max_abs_err": mas["err"], "ms": mas["ms"],
+                    "plain_ms": mas["plain_ms"], "bound_ms": mas["bound"][0],
+                    "bound_by": mas["bound"][1], "library_ms": None})
     log(card)  # as nvidia-smi prints it: name, power limit
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,8 @@ neither JAX nor tts_tpu, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerance: 1e-4 of the largest reference magnitude (float32; TF32 is off for
-the plain versions' cuDNN convs and matmuls).
+the plain versions' cuDNN convs and matmuls); the alignment path (0/1) is
+compared exactly.
 """
 
 import pytest
@@ -17,6 +18,8 @@ from tts_tpu_torch.models.vocoder.multiband_melgan import \
 from tts_tpu_torch.ops.cuda import build
 from tts_tpu_torch.ops.cuda import fused_melgan as M
 from tts_tpu_torch.ops.cuda import fused_resstack as R
+from tts_tpu_torch.ops.cuda import mas as MAS
+from tts_tpu_torch.ops.mas import maximum_path, maximum_path_torch
 
 
 @pytest.fixture
@@ -78,3 +81,41 @@ def test_wrappers_reject_cpu_operands_for_cuda_input(cuda):
            torch.zeros(1, C // 4, 2 * C, 4), torch.zeros(1, C))
     with pytest.raises(ValueError):
         R.fused_residual_stack(torch.zeros(1, 16, C, device=cuda), *ops)
+
+
+def _mas_inputs(B, T_x, T_y, seed, ties):
+    g = torch.Generator().manual_seed(seed)
+    if ties:
+        value = torch.randint(-2, 3, (B, T_x, T_y), generator=g).float()
+    else:
+        value = torch.randn(B, T_x, T_y, generator=g)
+    t_xs = torch.randint(1, T_x + 1, (B,), generator=g)
+    t_ys = torch.maximum(t_xs, torch.randint(1, T_y + 1, (B,), generator=g))
+    t_xs[0], t_ys[0] = T_x, T_y
+    mask = ((torch.arange(T_x)[None, :, None] < t_xs[:, None, None])
+            & (torch.arange(T_y)[None, None, :] < t_ys[:, None, None]))
+    return value, mask.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_x,T_y,ties", [(4, 17, 40, False),
+                                            (8, 192, 864, False),
+                                            (8, 192, 864, True),
+                                            (2, 1100, 1300, False)])
+def test_mas_kernel_equals_plain(cuda, B, T_x, T_y, ties):
+    """Ragged lengths; integer values give many exact ties; T_x = 1100
+    exceeds one block's 1024 threads."""
+    value, mask = _mas_inputs(B, T_x, T_y, seed=T_x + T_y, ties=ties)
+    want = maximum_path_torch(value, mask)
+    before = build.LAUNCHES[MAS.KERNEL]
+    got = maximum_path(value.to(cuda), mask.to(cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[MAS.KERNEL] - before == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_mas_wrapper_rejects_cpu_operand(cuda):
+    value, mask = _mas_inputs(2, 5, 9, seed=0, ties=False)
+    with pytest.raises(ValueError):
+        maximum_path(value.to(cuda), mask)

@@ -8,6 +8,15 @@ functions, and a Mozilla ``.pth.tar`` state dict loads into the port as it
 is. Layout changes: flax conv kernels (k, in, out) -> torch (out, in, k);
 flax Dense (in, out) -> torch 1x1 conv (out, in, 1); flax ConvTranspose
 (2f, in, out) -> torch ConvTranspose1d (in, out, 2f) with time flipped.
+
+Direction: every function here goes from tts_tpu to the port.
+``glow_tts_state_dict_from_jax`` only moves and reshapes leaves (no weight
+norm is folded), so it also maps any tree of the params' structure leaf by
+leaf: the training tests map jax gradients and optax-updated params with it
+and compare them with the port's ``.grad`` and parameters by name.
+``melgan_state_dict_from_jax`` folds weight norm first, so it maps params
+only. The other direction, port -> tts_tpu, is
+``tts_tpu/compat/torch_port.py`` in the JAX package.
 """
 
 from __future__ import annotations

@@ -1,0 +1,197 @@
+"""TTS training dataset: phoneme caching, length bucketing, padded collate
+(≙ tts_tpu/data/tts_dataset.py, a copy on the port's text frontend and
+audio processor).
+
+Capability parity with Mozilla TTS's TTS/tts/datasets/TTSDataset.py:12-288
+for what single-speaker, single-device Glow-TTS training reads (phoneme .npy
+caching l.83-113, length sort l.149-179, collate computing mels in the loader
+l.187-288). Batches are padded to *bucketed* (text, frame) shapes (multiples
+of ``SHAPE_PAD`` and the reduction factor), numpy and time-major, as in
+tts_tpu; the trainer moves them to the device and to (B, C, T).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import threading
+import queue as _queue
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tts_tpu_torch.text import phoneme_to_sequence, text_to_sequence
+
+SHAPE_PAD = 32      # text and frame lengths are padded to multiples of this
+PREFETCH = 2        # collated batches the loader thread keeps ready
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class TTSDataset:
+    def __init__(
+        self,
+        ap,
+        items: Sequence[Sequence],
+        *,
+        outputs_per_step: int = 1,
+        text_cleaner="english_cleaners",
+        min_seq_len: int = 0,
+        max_seq_len: int = float("inf"),
+        use_phonemes: bool = True,
+        phoneme_cache_path: Optional[str] = None,
+        phoneme_language: str = "en-us",
+        enable_eos_bos: bool = False,
+    ):
+        self.ap = ap
+        self.items = [list(it) for it in items]
+        self.r = outputs_per_step
+        self.cleaners = text_cleaner
+        self.min_seq_len = min_seq_len
+        self.max_seq_len = max_seq_len
+        self.use_phonemes = use_phonemes
+        self.phoneme_cache_path = phoneme_cache_path
+        self.phoneme_language = phoneme_language
+        self.enable_eos_bos = enable_eos_bos
+        if phoneme_cache_path:
+            os.makedirs(phoneme_cache_path, exist_ok=True)
+        self.sort_items()
+
+    # -- text --------------------------------------------------------------
+
+    def _cache_key(self, text: str) -> str:
+        return hashlib.md5(text.encode("utf-8")).hexdigest()
+
+    def _load_or_generate_phoneme_sequence(self, text: str) -> np.ndarray:
+        """Phoneme-id caching to .npy (≙ TTSDataset.py:83-113)."""
+        if self.phoneme_cache_path:
+            cache_file = os.path.join(
+                self.phoneme_cache_path, self._cache_key(text) + "_phoneme.npy")
+            if os.path.isfile(cache_file):
+                try:
+                    return np.load(cache_file)
+                except (ValueError, OSError):
+                    pass  # corrupt cache entry -> regenerate
+        seq = np.asarray(
+            phoneme_to_sequence(
+                text, self.cleaners, language=self.phoneme_language,
+                enable_eos_bos=self.enable_eos_bos),
+            dtype=np.int32)
+        if self.phoneme_cache_path:
+            np.save(cache_file, seq)
+        return seq
+
+    def text_ids(self, text: str) -> np.ndarray:
+        if self.use_phonemes:
+            return self._load_or_generate_phoneme_sequence(text)
+        return np.asarray(
+            text_to_sequence(text, self.cleaners), dtype=np.int32)
+
+    # -- ordering ----------------------------------------------------------
+
+    def sort_items(self) -> None:
+        """Sort by text length and keep those within [min, max]
+        (≙ TTSDataset.py:149-179)."""
+        lengths = np.array([len(it[0]) if it[0] else 0 for it in self.items])
+        self.items = [self.items[i] for i in np.argsort(lengths)
+                      if self.min_seq_len <= lengths[i] <= self.max_seq_len]
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, idx: int) -> dict:
+        text, wav_file = self.items[idx][:2]
+        return {
+            "text": self.text_ids(text),
+            "wav": self.ap.load_wav(wav_file).astype(np.float32),
+            "item_idx": wav_file,
+        }
+
+    # -- collate -----------------------------------------------------------
+
+    def collate(self, samples: List[dict]) -> Dict[str, np.ndarray]:
+        """Batch samples into padded arrays with bucketed static shapes.
+
+        Returns time-major features: mel (B, T_frames, n_mels), stop
+        targets already grouped by r (B, T_frames // r).
+        """
+        B = len(samples)
+        # sort batch desc by text length (keeps parity with the reference's
+        # collate ordering so attention masks align with sorted lengths)
+        samples = sorted(samples, key=lambda s: len(s["text"]), reverse=True)
+
+        text_lens = np.array([len(s["text"]) for s in samples], dtype=np.int32)
+        T_text = _round_up(int(text_lens.max()), SHAPE_PAD)
+
+        mels = [self.ap.melspectrogram(s["wav"]) for s in samples]
+        mel_lens = np.array([m.shape[0] for m in mels], dtype=np.int32)
+        T_mel = _round_up(_round_up(int(mel_lens.max()), SHAPE_PAD), self.r)
+
+        n_mels = mels[0].shape[1]
+        text = np.zeros((B, T_text), dtype=np.int32)
+        mel = np.zeros((B, T_mel, n_mels), dtype=np.float32)
+        stop = np.zeros((B, T_mel), dtype=np.float32)
+        for i, s in enumerate(samples):
+            text[i, : text_lens[i]] = s["text"]
+            mel[i, : mel_lens[i]] = mels[i]
+            # pad frames repeat the last frame so stop prediction sees a
+            # held frame (reference pads with zeros then marks stops)
+            stop[i, mel_lens[i] - 1:] = 1.0
+        # group stop targets by reduction factor: a decoder step stops when
+        # any of its r frames is a stop frame (≙ train format_data reshape)
+        stop = stop.reshape(B, T_mel // self.r, self.r).max(axis=-1)
+
+        return {
+            "text": text,
+            "text_lengths": text_lens,
+            "mel": mel,
+            "mel_lengths": mel_lens,
+            "stop_targets": stop,
+            "item_idxs": [s["item_idx"] for s in samples],
+        }
+
+    # -- iteration ---------------------------------------------------------
+
+    def batches(self, batch_size: int, *, shuffle: bool = False,
+                seed: int = 0):
+        """Yield the full batches, collated by a background thread.
+
+        The DataLoader-worker equivalent: one producer thread computes
+        features (STFT on host) while the consumer feeds the device.
+        """
+        idxs = list(range(len(self.items)))
+        if shuffle:
+            # an explicit generator seeded with ``seed`` (tts_tpu shuffles
+            # with random.Random(seed): same seeding, another permutation)
+            g = torch.Generator().manual_seed(seed)
+            idxs = torch.randperm(len(idxs), generator=g).tolist()
+        n_batches = len(idxs) // batch_size
+        if n_batches == 0:
+            return
+
+        q: _queue.Queue = _queue.Queue(maxsize=PREFETCH)
+        _SENTINEL = object()
+
+        def producer():
+            try:
+                for b in range(n_batches):
+                    sel = idxs[b * batch_size: (b + 1) * batch_size]
+                    q.put(self.collate([self[i] for i in sel]))
+            except Exception as e:  # surface loader errors to consumer
+                q.put(e)
+            finally:
+                q.put(_SENTINEL)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                break
+            if isinstance(item, Exception):
+                raise item
+            yield item
+        t.join()

@@ -1,5 +1,5 @@
-"""Glow-TTS flow decoder, reverse direction: time squeeze + stacked
-invertible flows (≙ tts_tpu/models/glow/decoder.py), (B, C, T) layout."""
+"""Glow-TTS flow decoder: time squeeze + stacked invertible flows, both
+directions (≙ tts_tpu/models/glow/decoder.py), (B, C, T) layout."""
 
 from __future__ import annotations
 
@@ -40,7 +40,8 @@ class FlowDecoder(nn.Module):
     def __init__(self, in_channels: int = 80, hidden_channels: int = 192,
                  kernel_size: int = 5, dilation_rate: int = 1,
                  num_flow_blocks: int = 12, num_coupling_layers: int = 4,
-                 num_splits: int = 4, num_sqz: int = 2):
+                 dropout_rate: float = 0.05, num_splits: int = 4,
+                 num_sqz: int = 2):
         super().__init__()
         self.num_sqz = num_sqz
         ch = in_channels * num_sqz
@@ -50,7 +51,19 @@ class FlowDecoder(nn.Module):
             self.flows.append(InvConvNear(ch, num_splits))
             self.flows.append(CouplingBlock(
                 ch, hidden_channels, kernel_size, dilation_rate,
-                num_coupling_layers))
+                num_coupling_layers, dropout_rate))
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Mel (B, C, T) -> (latent (B, C, T'), logdet (B,) summed over the
+        flows in float32, mask (B, 1, T'))."""
+        x, sq_mask = squeeze(x, x_mask, self.num_sqz)
+        logdet_total = torch.zeros(x.shape[0], device=x.device)
+        for flow in self.flows:
+            x, logdet = flow(x, sq_mask)
+            logdet_total = logdet_total + logdet
+        z, z_mask = unsqueeze(x, sq_mask, self.num_sqz)
+        return z, logdet_total, z_mask
 
     def reverse(self, z: torch.Tensor, z_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

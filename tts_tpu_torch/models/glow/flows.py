@@ -1,11 +1,10 @@
-"""Normalizing-flow blocks for the Glow-TTS decoder, reverse direction
+"""Normalizing-flow blocks for the Glow-TTS decoder
 (≙ tts_tpu/models/glow/flows.py), in PyTorch's (B, C, T) layout.
 
-Only inference runs here, so each flow has ``reverse(x, x_mask)``; the
-forward direction and its log-determinants come with Glow training.
-Parameter names follow Mozilla TTS (``logs``/``bias``, ``weight``,
-``start``/``wn``/``end``, ``in_layers``/``res_skip_layers`` with
-``weight_v``/``weight_g``).
+Each flow has ``forward(x, x_mask) -> (z, logdet)`` (training; logdet is
+(B,), float32) and ``reverse(x, x_mask) -> x`` (inference). Parameter names
+follow Mozilla TTS (``logs``/``bias``, ``weight``, ``start``/``wn``/``end``,
+``in_layers``/``res_skip_layers`` with ``weight_v``/``weight_g``).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tts_tpu_torch.models.glow.transformer import LayerNorm
+from tts_tpu_torch.models.glow.transformer import Dropout, LayerNorm
 from tts_tpu_torch.models.weight_norm import weight_norm
 
 
@@ -25,12 +24,14 @@ def fused_gate(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvLayerNorm(nn.Module):
-    """conv -> layernorm -> relu stack + zero-initialized residual projection
-    (≙ ConvLayerNorm, the encoder prenet)."""
+    """conv -> layernorm -> relu -> dropout stack + zero-initialized
+    residual projection (≙ ConvLayerNorm, the encoder prenet)."""
 
     def __init__(self, in_channels: int, hidden_channels: int,
-                 out_channels: int, kernel_size: int = 5, num_layers: int = 3):
+                 out_channels: int, kernel_size: int = 5, num_layers: int = 3,
+                 dropout_rate: float = 0.5):
         super().__init__()
+        self.dropout = Dropout(dropout_rate)
         self.conv_layers = nn.ModuleList()
         self.norm_layers = nn.ModuleList()
         ch = in_channels
@@ -46,17 +47,41 @@ class ConvLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         y = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
-            y = torch.relu(norm(conv(y * x_mask)))
+            y = self.dropout(torch.relu(norm(conv(y * x_mask))))
         return (x + self.proj(y)) * x_mask
 
 
 class ActNorm(nn.Module):
-    """Per-channel affine (≙ ActNorm); reverse z = (x - bias) e^-logs."""
+    """Per-channel affine (≙ ActNorm): z = (bias + e^logs x) * mask.
+
+    Data-dependent init: ``apply_ddi`` clears ``initialized``; the next
+    forward then sets ``logs`` and ``bias`` from the masked mean and
+    variance of its input (variance floored at 1e-6) and applies them in
+    the same pass, so the ActNorms after it see this one already
+    normalized."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.logs = nn.Parameter(torch.zeros(1, channels, 1))
         self.bias = nn.Parameter(torch.zeros(1, channels, 1))
+        self.initialized = True
+
+    @torch.no_grad()
+    def _initialize(self, x: torch.Tensor, x_mask: torch.Tensor) -> None:
+        denom = x_mask.sum().clamp_min(1.0)
+        m = (x * x_mask).sum(dim=(0, 2)) / denom
+        m_sq = (x * x * x_mask).sum(dim=(0, 2)) / denom
+        logs = -0.5 * torch.log((m_sq - m ** 2).clamp_min(1e-6))
+        self.logs.copy_(logs.view_as(self.logs))
+        self.bias.copy_((-m * torch.exp(logs)).view_as(self.bias))
+        self.initialized = True
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor):
+        if not self.initialized:
+            self._initialize(x, x_mask)
+        z = (self.bias + torch.exp(self.logs) * x) * x_mask
+        logdet = self.logs.sum() * x_mask.sum(dim=(1, 2))
+        return z, logdet
 
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         return (x - self.bias) * torch.exp(-self.logs) * x_mask
@@ -90,7 +115,12 @@ def _closed_form_inv(w: torch.Tensor) -> torch.Tensor:
 
 class InvConvNear(nn.Module):
     """Invertible 1x1 conv over channel groups of ``n_split``
-    (≙ InvConvNear): halves first, then an n_split/2 interleave."""
+    (≙ InvConvNear): halves first, then an n_split/2 interleave.
+
+    ``store_inverse`` caches the inverse weight for inference; the cache
+    holds only while ``weight`` is unchanged (its version counter, which
+    every in-place update bumps: an optimizer step, ``load_state_dict``),
+    so a model trained after caching never inverts with stale weights."""
 
     def __init__(self, channels: int, n_split: int = 4):
         super().__init__()
@@ -102,35 +132,47 @@ class InvConvNear(nn.Module):
             q[:, 0] = -q[:, 0]
         self.weight = nn.Parameter(q)
         self.weight_inv = None
+        self._inverse_of = None     # weight's version when weight_inv was set
 
     def store_inverse(self) -> None:
         """Cache the inverse for inference (≙ Mozilla's ``store_inverse``).
         The cofactor expansion is a few hundred tiny ops: computed on the
-        CPU once, not on the device per call. Call again after the weights
-        change."""
+        CPU once, not on the device per call. Call after moving the model
+        to its device."""
         w = self.weight.detach().float().cpu()
         self.weight_inv = _closed_form_inv(w).to(self.weight.device)
+        self._inverse_of = self.weight._version
 
-    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def _mix(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         B, C, T = x.shape
         ns, half = self.n_split, self.n_split // 2
         xg = x.reshape(B, 2, C // ns, half, T).transpose(2, 3)
         xg = xg.reshape(B, ns, C // ns, T)
-        w = self.weight_inv
-        if w is None:
-            w = _closed_form_inv(self.weight.float())
-        w = w.to(x.dtype)
         zg = torch.einsum("rs,bsgt->brgt", w, xg)
-        z = zg.reshape(B, 2, half, C // ns, T).transpose(2, 3).reshape(B, C, T)
-        return z * x_mask
+        return zg.reshape(B, 2, half, C // ns, T).transpose(2, 3).reshape(
+            B, C, T)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor):
+        C = x.shape[1]
+        _, logabsdet = torch.linalg.slogdet(self.weight.float())
+        logdet = logabsdet * (C / self.n_split) * x_mask.sum(dim=(1, 2))
+        return self._mix(x, self.weight) * x_mask, logdet
+
+    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+        w = self.weight_inv
+        if w is None or self._inverse_of != self.weight._version:
+            w = _closed_form_inv(self.weight.float())
+        return self._mix(x, w.to(x.dtype)) * x_mask
 
 
 class WN(nn.Module):
     """Dilated-conv WaveNet core with weight norm (≙ WN), single speaker."""
 
     def __init__(self, hidden_channels: int, kernel_size: int = 5,
-                 dilation_rate: int = 1, num_layers: int = 4):
+                 dilation_rate: int = 1, num_layers: int = 4,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout_rate)
         self.hidden_channels = hidden_channels
         self.num_layers = num_layers
         self.in_layers = nn.ModuleList()
@@ -151,7 +193,7 @@ class WN(nn.Module):
         output = torch.zeros_like(x)
         for i, (conv_in, conv_rs) in enumerate(zip(self.in_layers,
                                                    self.res_skip_layers)):
-            res_skip = conv_rs(fused_gate(conv_in(x)))
+            res_skip = conv_rs(fused_gate(self.dropout(conv_in(x))))
             if i < self.num_layers - 1:
                 x = (x + res_skip[:, :H]) * x_mask
                 output = output + res_skip[:, H:]
@@ -166,20 +208,31 @@ class CouplingBlock(nn.Module):
 
     def __init__(self, in_channels: int, hidden_channels: int,
                  kernel_size: int = 5, dilation_rate: int = 1,
-                 num_layers: int = 4):
+                 num_layers: int = 4, dropout_rate: float = 0.0):
         super().__init__()
         self.half = in_channels // 2
         self.start = weight_norm(nn.Conv1d(self.half, hidden_channels, 1))
-        self.wn = WN(hidden_channels, kernel_size, dilation_rate, num_layers)
+        self.wn = WN(hidden_channels, kernel_size, dilation_rate, num_layers,
+                     dropout_rate)
         # zero-initialized end conv: an identity flow at start
         self.end = nn.Conv1d(hidden_channels, in_channels, 1)
         nn.init.zeros_(self.end.weight)
         nn.init.zeros_(self.end.bias)
 
-    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        x_0, x_1 = x[:, :self.half], x[:, self.half:]
+    def _affine(self, x_0: torch.Tensor, x_mask: torch.Tensor):
         h = self.start(x_0) * x_mask
         out = self.end(self.wn(h, x_mask))
-        m, logs = out[:, :self.half], out[:, self.half:]
+        return out[:, :self.half], out[:, self.half:]       # m, logs
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor):
+        x_0, x_1 = x[:, :self.half], x[:, self.half:]
+        m, logs = self._affine(x_0, x_mask)
+        z_1 = (m + torch.exp(logs) * x_1) * x_mask
+        logdet = (logs.float() * x_mask).sum(dim=(1, 2))
+        return torch.cat([x_0, z_1], dim=1), logdet
+
+    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+        x_0, x_1 = x[:, :self.half], x[:, self.half:]
+        m, logs = self._affine(x_0, x_mask)
         z_1 = (x_1 - m) * torch.exp(-logs) * x_mask
         return torch.cat([x_0, z_1], dim=1)

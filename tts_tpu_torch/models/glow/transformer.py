@@ -31,15 +31,36 @@ class LayerNorm(nn.Module):
         return y.transpose(1, 2)
 
 
+class Dropout(nn.Module):
+    """Dropout as flax computes it (keep with probability 1 - rate, kept
+    values divided by 1 - rate), drawing its mask from ``generator`` (an
+    explicit ``torch.Generator`` on the input's device; the default one when
+    None). Active only in ``train()`` mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
+                          dtype=x.dtype) < 1.0 - self.rate
+        return x * keep / (1.0 - self.rate)
+
+
 class RelativePositionMultiHeadAttention(nn.Module):
     """Multi-head attention with windowed relative key/value embeddings.
     Outside the window the relative embeddings are zero (not the clipped edge
     embedding), as in tts_tpu and the Mozilla reference."""
 
     def __init__(self, channels: int, num_heads: int,
-                 rel_attn_window_size: Optional[int] = 4):
+                 rel_attn_window_size: Optional[int] = 4,
+                 dropout_rate: float = 0.0):
         super().__init__()
         assert channels % num_heads == 0
+        self.dropout = Dropout(dropout_rate)
         self.num_heads = num_heads
         self.k_channels = channels // num_heads
         self.window = rel_attn_window_size
@@ -80,7 +101,7 @@ class RelativePositionMultiHeadAttention(nn.Module):
             band = (diff.abs() <= W).to(scores.dtype)
             scores = scores + torch.gather(rel, 3, slot) * band
         scores = scores.masked_fill(~attn_mask, -1e4)
-        p = torch.softmax(scores, dim=-1)
+        p = self.dropout(torch.softmax(scores, dim=-1))
         out = torch.matmul(p, v)                                 # (B, H, T, d)
         if self.window is not None:
             cols, valid = self._band_index(T, x.device)
@@ -92,11 +113,13 @@ class RelativePositionMultiHeadAttention(nn.Module):
 
 
 class FFN(nn.Module):
-    """Conv feed-forward (≙ FFN): conv -> relu -> conv, masked."""
+    """Conv feed-forward (≙ FFN): conv -> relu -> dropout -> conv, masked."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int = 1):
+                 filter_channels: int, kernel_size: int = 1,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout_rate)
         pad = kernel_size // 2
         self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size,
                                 padding=pad)
@@ -104,7 +127,7 @@ class FFN(nn.Module):
                                 padding=pad)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.conv_1(x * x_mask))
+        y = self.dropout(torch.relu(self.conv_1(x * x_mask)))
         return self.conv_2(y * x_mask) * x_mask
 
 
@@ -113,18 +136,22 @@ class RelPosTransformer(nn.Module):
 
     def __init__(self, hidden_channels: int = 192, filter_channels: int = 768,
                  num_heads: int = 2, num_layers: int = 6, kernel_size: int = 3,
-                 rel_attn_window_size: Optional[int] = 4):
+                 rel_attn_window_size: Optional[int] = 4,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout_rate)
         self.attn_layers = nn.ModuleList()
         self.norm_layers_1 = nn.ModuleList()
         self.ffn_layers = nn.ModuleList()
         self.norm_layers_2 = nn.ModuleList()
         for _ in range(num_layers):
             self.attn_layers.append(RelativePositionMultiHeadAttention(
-                hidden_channels, num_heads, rel_attn_window_size))
+                hidden_channels, num_heads, rel_attn_window_size,
+                dropout_rate))
             self.norm_layers_1.append(LayerNorm(hidden_channels))
             self.ffn_layers.append(FFN(hidden_channels, hidden_channels,
-                                       filter_channels, kernel_size))
+                                       filter_channels, kernel_size,
+                                       dropout_rate))
             self.norm_layers_2.append(LayerNorm(hidden_channels))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
@@ -133,6 +160,6 @@ class RelPosTransformer(nn.Module):
         attn_mask = m[:, :, :, None] & m[:, :, None, :]          # (B,1,T,T)
         for attn, ln1, ffn, ln2 in zip(self.attn_layers, self.norm_layers_1,
                                        self.ffn_layers, self.norm_layers_2):
-            x = ln1(x + attn(x * x_mask, attn_mask))
-            x = ln2(x + ffn(x, x_mask))
+            x = ln1(x + self.dropout(attn(x * x_mask, attn_mask)))
+            x = ln2(x + self.dropout(ffn(x, x_mask)))
         return x * x_mask

@@ -1,10 +1,19 @@
-"""Glow-TTS inference: transformer encoder + duration predictor ->
-``generate_path`` -> inverse flow decoder (≙ tts_tpu/models/glow_tts.py,
-``GlowTTS.inference``; single speaker). Training (MAS, the forward flow and
-its loss) comes with the Glow training slice."""
+"""Glow-TTS: transformer encoder + duration predictor + flow decoder + MAS
+(≙ tts_tpu/models/glow_tts.py; single speaker).
+
+Training (``forward``) runs the mel through the flows to the latent z,
+builds the (text x frame) Gaussian log-likelihood map and finds the best
+monotonic alignment with ``maximum_path`` (the CUDA kernel on the card),
+both without gradient, as tts_tpu's ``stop_gradient``s; then it expands the
+encoder statistics through that alignment. ``glow_tts_loss`` is the flow MLE
+plus the duration loss; ``apply_ddi`` the data-dependent ActNorm init.
+Inference expands the statistics by predicted durations (``generate_path``)
+and inverts the flows.
+"""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -12,7 +21,9 @@ from torch import nn
 
 from tts_tpu_torch.models.glow.decoder import FlowDecoder
 from tts_tpu_torch.models.glow.encoder import GlowTTSEncoder
-from tts_tpu_torch.ops.mas import generate_path
+from tts_tpu_torch.models.glow.flows import ActNorm
+from tts_tpu_torch.models.glow.transformer import Dropout
+from tts_tpu_torch.ops.mas import generate_path, maximum_path
 from tts_tpu_torch.ops.masking import sequence_mask
 
 
@@ -25,7 +36,8 @@ class GlowTTS(nn.Module):
                  rel_attn_window_size: Optional[int] = 4,
                  kernel_size_dec: int = 5, dilation_rate: int = 1,
                  num_flow_blocks_dec: int = 12, num_block_layers: int = 4,
-                 num_splits: int = 4, num_sqz: int = 2):
+                 num_splits: int = 4, num_sqz: int = 2,
+                 dropout_rate: float = 0.1, dropout_rate_dec: float = 0.05):
         super().__init__()
         self.num_sqz = num_sqz
         self.encoder = GlowTTSEncoder(
@@ -34,13 +46,22 @@ class GlowTTS(nn.Module):
             filter_channels=filter_channels,
             filter_channels_dp=filter_channels_dp, num_heads=num_heads,
             num_layers=num_layers_enc, kernel_size=kernel_size,
-            rel_attn_window_size=rel_attn_window_size)
+            rel_attn_window_size=rel_attn_window_size,
+            dropout_rate=dropout_rate)
         self.decoder = FlowDecoder(
             in_channels=out_channels, hidden_channels=hidden_channels_dec,
             kernel_size=kernel_size_dec, dilation_rate=dilation_rate,
             num_flow_blocks=num_flow_blocks_dec,
-            num_coupling_layers=num_block_layers, num_splits=num_splits,
+            num_coupling_layers=num_block_layers,
+            dropout_rate=dropout_rate_dec, num_splits=num_splits,
             num_sqz=num_sqz)
+
+    def set_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Draw every dropout mask from ``generator`` (on the model's
+        device)."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     def store_inverse(self) -> None:
         """Cache every flow's inverse 1x1 weight; call after loading
@@ -48,6 +69,52 @@ class GlowTTS(nn.Module):
         for flow in self.decoder.flows:
             if hasattr(flow, "store_inverse"):
                 flow.store_inverse()
+
+    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
+                mel: torch.Tensor, mel_lengths: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        """Training forward (≙ ``GlowTTS.__call__``). text (B, T_x) ids;
+        mel (B, C, T_y) in NCW. Returns tts_tpu's keys; ``alignments`` is
+        (B, T_y, T_x) as there, every other tensor NCW: z, y_mean,
+        y_log_scale (B, C, T_y'); o_dur_log, o_attn_dur, x_mask (B, 1, T_x);
+        y_mask (B, 1, T_y'); logdet (B,); y_lengths (B,), where T_y' is T_y
+        cut to a multiple of num_sqz."""
+        o_mean, o_log_scale, o_dur_log, x_mask = self.encoder(
+            text, text_lengths)
+        y_max = mel.shape[2] // self.num_sqz * self.num_sqz
+        mel = mel[:, :, :y_max]
+        mel_lengths_sqz = (mel_lengths // self.num_sqz) * self.num_sqz
+        y_mask = sequence_mask(mel_lengths_sqz, y_max).to(mel.dtype)[:, None]
+        z, logdet, y_mask = self.decoder(mel, y_mask)
+
+        # the alignment, without gradient (≙ tts_tpu's stop_gradients)
+        with torch.no_grad():
+            o_scale = torch.exp(-2.0 * o_log_scale)               # (B, C, T_x)
+            logp1 = torch.sum(-0.5 * math.log(2 * math.pi) - o_log_scale,
+                              dim=1)                              # (B, T_x)
+            logp2 = torch.einsum("bct,bcy->bty", o_scale, -0.5 * z ** 2)
+            logp3 = torch.einsum("bct,bcy->bty", o_mean * o_scale, z)
+            logp4 = torch.sum(-0.5 * o_mean ** 2 * o_scale, dim=1)
+            logp = logp1[:, :, None] + logp2 + logp3 + logp4[:, :, None]
+            attn_mask = x_mask[:, 0, :, None] * y_mask[:, 0, None, :]
+            attn = maximum_path(logp, attn_mask)                 # (B, T_x, T_y)
+
+        # encoder statistics at frame rate; their gradients flow
+        y_mean = torch.matmul(o_mean, attn)                      # (B, C, T_y)
+        y_log_scale = torch.matmul(o_log_scale, attn)
+        o_attn_dur = torch.log1p(attn.sum(dim=2))[:, None] * x_mask
+        return {
+            "z": z,
+            "logdet": logdet,
+            "y_mean": y_mean,
+            "y_log_scale": y_log_scale,
+            "o_dur_log": o_dur_log,
+            "o_attn_dur": o_attn_dur,
+            "alignments": attn.transpose(1, 2),
+            "x_mask": x_mask,
+            "y_mask": y_mask,
+            "y_lengths": mel_lengths_sqz,
+        }
 
     @torch.no_grad()
     def inference(self, text: torch.Tensor,
@@ -95,3 +162,38 @@ class GlowTTS(nn.Module):
             "alignments": attn.transpose(1, 2),
             "durations_log": o_dur_log.transpose(1, 2),
         }
+
+
+def glow_tts_loss(outputs: Dict[str, torch.Tensor],
+                  text_lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Flow MLE + duration loss (≙ tts_tpu's ``glow_tts_loss``) on
+    ``GlowTTS.forward``'s outputs."""
+    z, y_mask = outputs["z"], outputs["y_mask"]
+    y_mean, y_log_scale = outputs["y_mean"], outputs["y_log_scale"]
+    n_elems = torch.clamp(y_mask.sum() * z.shape[1], min=1.0)
+    sq = torch.exp(-2.0 * y_log_scale) * (z - y_mean) ** 2
+    log_mle = (0.5 * math.log(2 * math.pi)
+               + (torch.sum(y_log_scale * y_mask)
+                  + 0.5 * torch.sum(sq * y_mask)
+                  - torch.sum(outputs["logdet"])) / n_elems)
+
+    # Huber loss on log-durations, normalized by token count
+    diff = outputs["o_dur_log"] - outputs["o_attn_dur"]
+    huber = torch.where(diff.abs() < 1.0, 0.5 * diff ** 2, diff.abs() - 0.5)
+    n_tokens = torch.clamp(text_lengths.sum().float(), min=1.0)
+    loss_dur = torch.sum(huber * outputs["x_mask"]) / n_tokens
+    return {"log_mle": log_mle, "loss_dur": loss_dur,
+            "loss": log_mle + loss_dur}
+
+
+@torch.no_grad()
+def apply_ddi(model: GlowTTS, batch: Dict[str, torch.Tensor]) -> None:
+    """Data-dependent ActNorm init (≙ tts_tpu's ``apply_ddi``): one forward
+    pass over ``batch`` in the model's current mode (the trainer's is
+    ``train()``, dropout on, as tts_tpu's), in which every ActNorm sets its
+    ``bias`` and ``logs`` from its masked input statistics in place."""
+    for m in model.modules():
+        if isinstance(m, ActNorm):
+            m.initialized = False
+    model(batch["text"], batch["text_lengths"], batch["mel"],
+          batch["mel_lengths"])

@@ -18,12 +18,15 @@ def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
         from tts_tpu_torch.models.glow_tts import GlowTTS
         audio = c.get("audio", {})
         # hard-coded hyperparameters as in tts_tpu (and the reference's
-        # setup_model)
+        # setup_model); the dropout rates are tts_tpu's GlowTTS defaults,
+        # which its trainer trains with (active only in train() mode)
         return GlowTTS(
             num_chars=num_chars,
             out_channels=audio.get("num_mels", 80),
             hidden_channels_enc=c.get("hidden_channels_encoder", 192),
             hidden_channels_dec=c.get("hidden_channels_decoder", 192),
             rel_attn_window_size=4,
+            dropout_rate=0.1,
+            dropout_rate_dec=0.05,
         )
     raise KeyError(f"unknown or not yet ported model: {name}")

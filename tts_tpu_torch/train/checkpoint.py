@@ -1,0 +1,91 @@
+"""Checkpoint save/restore (≙ tts_tpu/train/checkpoint.py: ``save_checkpoint``,
+``load_checkpoint``, ``save_best_model``, ``latest_checkpoint``).
+
+A port checkpoint is ``torch.save({"model": state_dict, "optimizer":
+optimizer state, "step", "epoch", "model_loss", "config"})`` with plain
+types only, so it loads with ``torch.load(weights_only=True)``; the
+``Synthesizer`` serves it as it is (it reads ``"model"``). The config is
+written beside it as ``config.json`` too. Reading tts_tpu's flax-msgpack
+checkpoints is not ported yet.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def _plain(config: Optional[Dict]) -> Optional[Dict]:
+    """A config as plain dicts, lists and scalars (loadable with
+    weights_only=True)."""
+    return None if config is None else json.loads(json.dumps(config,
+                                                              default=str))
+
+
+def save_checkpoint(output_dir: str, *, model: torch.nn.Module,
+                    optimizer: Any = None, step: int = 0, epoch: int = 0,
+                    model_loss: Optional[float] = None,
+                    config: Optional[Dict] = None,
+                    prefix: str = "checkpoint") -> str:
+    """Writes ``<output_dir>/<prefix>_<step>.pt``; returns its path."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, f"{prefix}_{step}.pt")
+    payload = {
+        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "optimizer": (None if optimizer is None else
+                      _to_cpu(optimizer.state_dict())),
+        "step": step,
+        "epoch": epoch,
+        "model_loss": model_loss,
+        "config": _plain(config),
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    if config is not None:
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            json.dump(payload["config"], f, indent=2)
+    return path
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_best_model(current_loss: float, best_loss: float, output_dir: str,
+                    **kwargs) -> float:
+    """Keep ``best_model.pt`` at the lowest loss seen; returns the best."""
+    if current_loss < best_loss:
+        kwargs.pop("prefix", None)
+        path = save_checkpoint(output_dir, model_loss=current_loss,
+                               prefix="best_model_tmp", **kwargs)
+        os.replace(path, os.path.join(output_dir, "best_model.pt"))
+        return current_loss
+    return best_loss
+
+
+def latest_checkpoint(output_dir: str, prefix: str = "checkpoint"
+                      ) -> Optional[str]:
+    """The checkpoint with the highest step number, or None."""
+    paths = glob.glob(os.path.join(output_dir, f"{prefix}_*.pt"))
+    if not paths:
+        return None
+
+    def step_of(p):
+        m = re.search(r"_(\d+)\.pt$", p)
+        return int(m.group(1)) if m else -1
+
+    return max(paths, key=step_of)

@@ -1,0 +1,164 @@
+"""Glow-TTS trainer (≙ tts_tpu/train/trainer_glow.py, on one device).
+
+Data-dependent ActNorm init on the first batch, then per batch: forward
+(with monotonic alignment search, the CUDA kernel on the card), MLE +
+duration loss, backward and the optimizer step (``train_step``). Weights
+start from ``config["seed"]`` (54321 by default); dropout masks and the DDI
+pass draw from the trainer's ``torch.Generator`` on its device; each
+epoch's shuffle is seeded with the epoch number, as in tts_tpu.
+Multi-speaker training and the data-parallel step are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from tts_tpu_torch import DeviceLike, resolve_device
+from tts_tpu_torch.audio import AudioProcessor
+from tts_tpu_torch.data import TTSDataset, load_meta_data
+from tts_tpu_torch.models.glow_tts import GlowTTS, apply_ddi, glow_tts_loss
+from tts_tpu_torch.models.registry import setup_model
+from tts_tpu_torch.text import num_symbols
+from tts_tpu_torch.train import checkpoint as ckpt_io
+from tts_tpu_torch.train.optim import RAdamW, make_optimizer
+from tts_tpu_torch.utils.generic import KeepAverage, StepTimer
+from tts_tpu_torch.utils.loggers import ConsoleLogger, TensorboardLogger
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
+                    ) -> Dict[str, torch.Tensor]:
+    """A collated numpy batch (time-major mel) -> tensors on ``device``,
+    mel in (B, C, T)."""
+    return {
+        "text": torch.from_numpy(batch["text"]).long().to(device),
+        "text_lengths": torch.from_numpy(batch["text_lengths"]).to(device),
+        "mel": torch.from_numpy(batch["mel"]).to(device).transpose(1, 2)
+        .contiguous(),
+        "mel_lengths": torch.from_numpy(batch["mel_lengths"]).to(device),
+    }
+
+
+def train_step(model: GlowTTS, optimizer: RAdamW,
+               batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Forward, loss, backward and one optimizer step on a device batch, in
+    the model's current mode. Returns the losses before the update."""
+    optimizer.zero_grad()
+    out = model(batch["text"], batch["text_lengths"], batch["mel"],
+                batch["mel_lengths"])
+    losses = glow_tts_loss(out, batch["text_lengths"])
+    losses["loss"].backward()
+    optimizer.step()
+    values = torch.stack([v.detach() for v in losses.values()]).tolist()
+    return dict(zip(losses.keys(), values))
+
+
+class GlowTTSTrainer:
+    def __init__(self, config: Dict[str, Any], output_path: str,
+                 device: DeviceLike = None):
+        if config.get("use_speaker_embedding", False):
+            raise NotImplementedError("multi-speaker Glow-TTS training is "
+                                      "not ported yet")
+        if config.get("use_data_parallel", False):
+            raise NotImplementedError("the data-parallel Glow step is not "
+                                      "ported yet")
+        self.device = resolve_device(device)
+        self.c = config
+        self.output_path = output_path
+        os.makedirs(output_path, exist_ok=True)
+        self.ap = AudioProcessor(**config["audio"])
+        # the eval split is held out of training, as in tts_tpu
+        self.meta_train, _ = load_meta_data(config["datasets"])
+
+        seed = config.get("seed", 54321)
+        num_chars = num_symbols(config.get("use_phonemes", False))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = setup_model(num_chars, 1, config)
+        self.model = model.to(self.device)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.model.set_generator(self.generator)
+        self.optimizer = make_optimizer(
+            self.model,
+            lr=config.get("lr", 1e-3),
+            grad_clip=config.get("grad_clip", 5.0),
+            weight_decay=config.get("wd", 0.0),
+            use_noam=config.get("noam_schedule", True),
+            warmup_steps=config.get("warmup_steps", 4000))
+
+        self.console = ConsoleLogger()
+        self.tb = TensorboardLogger(output_path, "glow_tts")
+        self.global_step = 0
+        self.epoch = 0
+        self.best_loss = float("inf")
+        self.initialized = False        # DDI done (or weights restored)
+        self.step_stats: List[Dict[str, float]] = []
+        c = config
+        self.dataset = TTSDataset(
+            self.ap, self.meta_train,
+            outputs_per_step=self.model.num_sqz,
+            text_cleaner=c.get("text_cleaner", "english_cleaners"),
+            use_phonemes=c.get("use_phonemes", False),
+            phoneme_cache_path=c.get("phoneme_cache_path"),
+            phoneme_language=c.get("phoneme_language", "en-us"),
+            enable_eos_bos=c.get("enable_eos_bos_chars", False),
+            min_seq_len=c.get("min_seq_len", 0),
+            max_seq_len=c.get("max_seq_len", float("inf")))
+
+    def train_epoch(self) -> Dict[str, float]:
+        c = self.c
+        ds = self.dataset
+        keep = KeepAverage()
+        self.model.train()
+        start = time.time()
+        timer = StepTimer()
+        for batch in ds.batches(c.get("batch_size", 32), shuffle=True,
+                                seed=self.epoch):
+            loader_time = timer.lap()
+            db = batch_to_device(batch, self.device)
+            if not self.initialized:
+                apply_ddi(self.model, db)
+                self.initialized = True
+            losses = train_step(self.model, self.optimizer, db)
+            losses["step_time"] = timer.lap()
+            losses["loader_time"] = loader_time
+            keep.update_values({f"avg_{k}": v for k, v in losses.items()})
+            self.step_stats.append(losses)
+            self.global_step += 1
+            self.tb.tb_train_iter_stats(self.global_step, losses)
+            if self.global_step % c.get("save_step", 10000) == 0:
+                self.save_checkpoint()
+        self.console.print_train_epoch_end(self.global_step, self.epoch,
+                                           time.time() - start,
+                                           keep.avg_values)
+        return keep.avg_values
+
+    def fit(self) -> None:
+        for self.epoch in range(self.epoch, self.c["epochs"]):
+            self.console.print_epoch_start(self.epoch, self.c["epochs"])
+            stats = self.train_epoch()
+            self.best_loss = ckpt_io.save_best_model(
+                stats.get("avg_loss", float("inf")), self.best_loss,
+                self.output_path, model=self.model, optimizer=self.optimizer,
+                step=self.global_step, epoch=self.epoch)
+        if self.c.get("checkpoint", True):
+            self.save_checkpoint()
+        self.tb.close()
+
+    def save_checkpoint(self) -> str:
+        return ckpt_io.save_checkpoint(
+            self.output_path, model=self.model, optimizer=self.optimizer,
+            step=self.global_step, epoch=self.epoch, config=self.c)
+
+    def restore(self, path: str) -> None:
+        ckpt = ckpt_io.load_checkpoint(path)
+        self.model.load_state_dict(ckpt["model"])
+        if ckpt.get("optimizer") is not None:
+            self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.global_step = ckpt.get("step", 0)
+        self.epoch = ckpt.get("epoch", 0)
+        self.initialized = True
