@@ -36,6 +36,27 @@ Phases, in order; any failure exits non-zero with its traceback:
    finite, non-silent audio through the Synthesizer. Prints ms per step and
    MAS's device ms per step, and the split of one step (forward, backward,
    optimizer).
+7. gan kernels: the STFT-magnitude kernel at the 6 resolutions of the GAN
+   losses on full-width shapes (full band on 64 x 16,384 samples, subbands
+   on 256 x 4,096), and the grouped-conv weight- and input-gradient kernels
+   at the discriminator's three kernel layers of scale 0 at batch 64, each
+   against its plain version (dW within 1e-4 of its largest magnitude, dx
+   within 1e-5 absolute), with times, a library call's time and the bound;
+   then the STFT Function's gradient against autograd through the plain
+   version on the card.
+8. gan training: configs/multiband_melgan.json at full width (batch 64,
+   16,384 samples, mixed precision as configured) on the synthetic corpus
+   for 4 epochs of one step, the discriminator from step 1 on, through
+   bin/train_vocoder. The launch counts (zeroed just before) must equal
+   what the step counts give: per step 12 STFT magnitudes (6 resolutions x
+   y_hat and y); per step with the discriminator 27 input gradients (9
+   kernel layers in the generator update, 2 x 9 in the discriminator
+   update) and 18 weight gradients (discriminator update only). Every loss
+   must be finite, both networks' parameters must move, and the last
+   generator checkpoint must serve finite, non-silent audio through the
+   Synthesizer. Prints ms per step, loader ms, and the split of a step
+   (generator and discriminator updates, each forward / backward /
+   optimizer, device and host-enqueue time, kernels' device time).
 
 The second-last line is the kernels JSON; the last is the ok line.
 """
@@ -701,6 +722,324 @@ def training_phase(dev, root: str, card: str):
     return {"launches": launches[MAS.KERNEL], "steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: GAN kernels (STFT magnitude, grouped-conv gradients)
+# ---------------------------------------------------------------------------
+
+GAN_BATCH, GAN_SEQ = 64, 16384          # configs/multiband_melgan.json
+FULLBAND = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
+SUBBAND = ((384, 30, 150), (683, 60, 300), (171, 10, 60))
+# (B, C_in, L, C_out, groups) of down_0..2 at scale 0, kernel 41, stride 4
+DISC_LAYERS = ((GAN_BATCH, 16, 16384, 64, 16), (GAN_BATCH, 64, 4096, 256, 64),
+               (GAN_BATCH, 256, 1024, 1024, 256))
+DX_TOL = 1e-5                           # absolute, about 44 products each
+
+
+def gan_kernel_phase(dev):
+    from tts_tpu_torch.ops import grouped_conv as GC
+    from tts_tpu_torch.ops import stft as S
+    from tts_tpu_torch.ops.cuda import grouped_conv_grad as GCK
+    from tts_tpu_torch.ops.cuda import stft_mag as SK
+
+    g = torch.Generator(dev).manual_seed(SEED)
+    results = {}
+
+    # B5: one signal's six resolutions (the step runs each twice: y_hat, y)
+    res = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nb=0, fl=0.0)
+    signals = {"full": 0.3 * torch.randn(GAN_BATCH, GAN_SEQ, device=dev,
+                                         generator=g),
+               "sub": 0.3 * torch.randn(GAN_BATCH * 4, GAN_SEQ // 4,
+                                        device=dev, generator=g)}
+    for band, resolutions in (("full", FULLBAND), ("sub", SUBBAND)):
+        y = signals[band]
+        for n_fft, hop, win in resolutions:
+            fr = S.frames(y, n_fft, hop).reshape(-1, n_fft).contiguous()
+            wr, wi = S.dft_banks(n_fft, win, dev)
+            got = SK.stft_mag_cuda(fr, wr, wi)
+            want = S.stft_magnitude_torch(fr, wr, wi)
+            err = check_close(SK.KERNEL, got, want)
+            window = torch.hann_window(win, device=dev)
+            ms = cuda_time_ms(lambda: SK.stft_mag_cuda(fr, wr, wi), 10)
+            plain_ms = cuda_time_ms(
+                lambda: S.stft_magnitude_torch(fr, wr, wi), 10)
+            library_ms = cuda_time_ms(lambda: torch.stft(
+                y, n_fft, hop, win, window, center=True, pad_mode="reflect",
+                return_complex=True).abs(), 10)
+            N, K = fr.shape
+            F_ = wr.shape[1]
+            nb, fl = nbytes(fr, wr, wi, got), 4.0 * N * K * F_ + 4.0 * N * F_
+            log({"kernel": SK.KERNEL, "n_fft": n_fft, "hop": hop, "win": win,
+                 "frames": N, "bins": F_, "kernel_ms": ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": bound_ms(nb, fl)[0], "gflop": fl / 1e9,
+                 "max_abs_err": err, "max_mag": float(want.abs().max())})
+            res["err"] = max(res["err"], err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", library_ms), ("nb", nb),
+                             ("fl", fl)):
+                res[key] += val
+    res["bound"] = bound_ms(res.pop("nb"), res.pop("fl"))
+    results[SK.KERNEL] = res
+
+    # the Function's backward (analytic, plain matmuls) against autograd
+    # through the plain version, at one small resolution, on the card
+    y = signals["sub"][:8].clone().requires_grad_()
+    mag = S.stft_magnitude(y, 171, 10, 60)
+    w = torch.randn(mag.shape, device=dev, generator=g)
+    (mag * w).sum().backward()
+    yp = y.detach().clone().requires_grad_()
+    fr = S.frames(yp, 171, 10)
+    plain = S.stft_magnitude_torch(fr.reshape(-1, 171),
+                                   *S.dft_banks(171, 60, dev))
+    (plain.reshape(mag.shape) * w).sum().backward()
+    grad_err = check_close("stft_magnitude backward", y.grad, yp.grad)
+    log({"stft_function_grad_vs_autograd_max_abs_err": grad_err,
+         "max_grad": float(yp.grad.abs().max())})
+
+    # B6: the three kernel layers of scale 0
+    k, stride = 41, 4
+    pad = (k - 1) // 2
+    wres = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nb=0, fl=0.0)
+    dres = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nb=0, fl=0.0)
+    for B, cin, L, cout, groups in DISC_LAYERS:
+        x = torch.randn(B, cin, L, device=dev, generator=g)
+        w = 0.1 * torch.randn(cout, 1, k, device=dev, generator=g)
+        dy = torch.randn(B, cout, L // stride, device=dev, generator=g)
+        shape = f"x ({B}, {cin}, {L}) -> dy ({B}, {cout}, {L // stride})"
+        fl = 2.0 * cout * k * B * (L // stride)
+
+        got = GCK.grouped_conv_wgrad_cuda(x, dy, k, stride, groups)
+        want = GC.grouped_conv_wgrad_torch(x, dy, k, stride, groups)
+        err = check_close(GCK.WGRAD, got, want)
+        r = dict(ms=cuda_time_ms(lambda: GCK.grouped_conv_wgrad_cuda(
+                     x, dy, k, stride, groups), 10),
+                 plain_ms=cuda_time_ms(lambda: GC.grouped_conv_wgrad_torch(
+                     x, dy, k, stride, groups), 2, warmup=1),
+                 library_ms=cuda_time_ms(
+                     lambda: torch.nn.grad.conv1d_weight(
+                         x, w.shape, dy, stride, pad, groups=groups), 10),
+                 nb=nbytes(x, dy, got), fl=fl)
+        log({"kernel": GCK.WGRAD, "shapes": shape, "kernel_ms": r["ms"],
+             "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+             "bound_ms": bound_ms(r["nb"], fl)[0], "max_abs_err": err,
+             "max_dw": float(want.abs().max())})
+        wres["err"] = max(wres["err"], err)
+        for key in ("ms", "plain_ms", "library_ms", "nb", "fl"):
+            wres[key] += r[key]
+
+        got = GCK.grouped_conv_dgrad_cuda(dy, w, L, stride, groups)
+        want = GC.grouped_conv_dgrad_torch(dy, w, L, stride, groups)
+        err = float((got - want).abs().max())
+        if not err <= DX_TOL:
+            raise AssertionError(f"{GCK.DGRAD}: max |err| {err} > {DX_TOL}")
+        r = dict(ms=cuda_time_ms(lambda: GCK.grouped_conv_dgrad_cuda(
+                     dy, w, L, stride, groups), 10),
+                 plain_ms=cuda_time_ms(lambda: GC.grouped_conv_dgrad_torch(
+                     dy, w, L, stride, groups), 2, warmup=1),
+                 library_ms=cuda_time_ms(
+                     lambda: torch.nn.grad.conv1d_input(
+                         x.shape, w, dy, stride, pad, groups=groups), 10),
+                 nb=nbytes(dy, w, got), fl=fl)
+        log({"kernel": GCK.DGRAD, "shapes": shape, "kernel_ms": r["ms"],
+             "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+             "bound_ms": bound_ms(r["nb"], fl)[0], "max_abs_err": err,
+             "max_dx": float(want.abs().max())})
+        dres["err"] = max(dres["err"], err)
+        for key in ("ms", "plain_ms", "library_ms", "nb", "fl"):
+            dres[key] += r[key]
+    for name, r in ((GCK.WGRAD, wres), (GCK.DGRAD, dres)):
+        r["bound"] = bound_ms(r.pop("nb"), r.pop("fl"))
+        results[name] = r
+    for name, r in results.items():
+        log({"kernel": name, "summed_over": "the path's shapes, one launch "
+             "each", "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+             "library_ms": r["library_ms"], "bound_ms": r["bound"][0],
+             "bound_by": r["bound"][1], "max_abs_err": r["err"]})
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 8: GAN vocoder training
+# ---------------------------------------------------------------------------
+
+GAN_EPOCHS = 4
+
+
+def _timed_kernels(modules, names, events):
+    """Wrap the kernel launchers ``names`` of ``modules`` with CUDA events;
+    returns the originals to restore."""
+    saved = []
+    for mod, name in zip(modules, names):
+        fn = getattr(mod, name)
+
+        def timed(*args, _fn=fn, _name=name):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = _fn(*args)
+            ev[1].record()
+            events.append((_name, ev))
+            return out
+        setattr(mod, name, timed)
+        saved.append((mod, name, fn))
+    return saved
+
+
+def gan_training_phase(dev, root: str, card: str):
+    from tts_tpu_torch.bin.train_vocoder import main as train_main
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models.vocoder.registry import (setup_discriminator,
+                                                       setup_generator)
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import grouped_conv_grad as GCK
+    from tts_tpu_torch.ops.cuda import stft_mag as SK
+    from tts_tpu_torch.train.checkpoint import latest_checkpoint
+    from tts_tpu_torch.train.trainer_vocoder import batch_to_device
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = write_corpus(os.path.join(root, "LJSpeech"))
+    c = load_config(os.path.join(here, "configs", "multiband_melgan.json"))
+    c["data_path"] = os.path.join(corpus, "wavs")
+    c["output_path"] = os.path.join(root, "runs")
+    c["epochs"] = GAN_EPOCHS
+    c["steps_to_start_discriminator"] = 1
+    cfg_path = os.path.join(root, "multiband_melgan.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_main(["--config_path", cfg_path])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    steps = trainer.global_step
+    d_steps = sum(s["train_disc"] for s in trainer.step_stats)
+    expect = {SK.KERNEL: 12 * steps, GCK.DGRAD: 27 * d_steps,
+              GCK.WGRAD: 18 * d_steps}
+    log({"gan_training_launches": launches, "steps": steps,
+         "steps_with_discriminator": d_steps, "expected": expect,
+         "derivation": "stft_magnitude: 6 resolutions x (y_hat, y) = 12 per "
+         "step; per discriminator step, down_0..2 of 3 scales = 9 kernel "
+         "layers: generator update 9 input gradients (D frozen: no weight "
+         "gradient; the real audio needs none), discriminator update 2 "
+         "applications x 9 input gradients (conv_in's weights need down_0's) "
+         "and 2 x 9 weight gradients"})
+    assert steps == GAN_EPOCHS and d_steps == GAN_EPOCHS - 1, (steps, d_steps)
+    for name, n in expect.items():
+        assert launches.get(name, 0) == n, (name, launches, expect)
+    for stats in trainer.step_stats:
+        values = [v for k, v in stats.items() if k.startswith(("G_", "D_"))]
+        assert values and all(np.isfinite(values)), stats
+
+    # both networks moved from their seeded init
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(c.get("seed", 54321))
+        init = {"G": setup_generator(c).state_dict(),
+                "D": setup_discriminator(c).state_dict()}
+    moved = {}
+    for side, model in (("G", trainer.gen), ("D", trainer.disc)):
+        diffs = [float((p.detach().cpu() - init[side][n]).abs().max())
+                 for n, p in model.named_parameters()]
+        moved[side] = f"{sum(d > 0 for d in diffs)}/{len(diffs)}"
+        assert sum(d > 0 for d in diffs) > 0, f"no {side} parameter moved"
+
+    step_s = [s["step_time"] for s in trainer.step_stats]
+    log({"gan_training": "multiband_melgan full width",
+         "batch": c["batch_size"], "seq_len": c["seq_len"],
+         "mixed_precision": c["mixed_precision"], "steps": steps,
+         "losses": [{k: v for k, v in s.items() if k.startswith(("G_", "D_"))}
+                    for s in trainer.step_stats],
+         "wall_s": wall_s,
+         "ms_per_step_median_after_first":
+             1e3 * float(np.median(step_s[1:])),
+         "ms_per_step": [1e3 * t for t in step_s],
+         "loader_ms": [1e3 * s["loader_time"] for s in trainer.step_stats],
+         "params_moved": moved,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "card": card})
+
+    # the last generator checkpoint serves through the Synthesizer
+    paths = build_models(root)
+    ckpt = latest_checkpoint(trainer.output_path)
+    assert os.path.basename(ckpt) == f"checkpoint_{steps}.pt", ckpt
+    synth = Synthesizer(paths["tts"], paths["tts_config"], ckpt, cfg_path,
+                        device=dev)
+    wav = synth.tts("The birch canoe slid on the smooth planks.")
+    assert wav.ndim == 1 and np.isfinite(wav).all()
+    assert np.abs(wav).max() > 1e-3, float(np.abs(wav).max())
+    log({"served_from_gan_checkpoint": os.path.basename(ckpt),
+         "samples": len(wav), "peak": float(np.abs(wav).max())})
+
+    # where a step's time goes, on one G / D batch pair: device time between
+    # events, the host's time to enqueue each part (each optimizer waits
+    # for the card once), and the kernels' device time inside the step
+    from tts_tpu_torch.ops import grouped_conv as GC
+    from tts_tpu_torch.ops import stft as S
+    step = trainer.step
+    ds = trainer.dataset
+    items = list(range(c["batch_size"]))
+    bG = batch_to_device(ds.collate([ds[i] for i in items]), dev)
+    bD = batch_to_device(ds.collate([ds[ds.G_to_D_mappings[i]]
+                                     for i in items]), dev)
+    parts = ("G_forward_and_loss", "G_backward", "G_optimizer",
+             "D_forward_and_loss", "D_backward", "D_optimizer")
+    kernel_events = []
+    saved = _timed_kernels(
+        (S.stft_cuda, GC.gc_cuda, GC.gc_cuda),
+        ("stft_mag_cuda", "grouped_conv_wgrad_cuda",
+         "grouped_conv_dgrad_cuda"), kernel_events)
+    split = []
+    try:
+        for _ in range(3):
+            kernel_events.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+            host = [0.0] * 7
+            step.opt_G.zero_grad()
+            step.opt_D.zero_grad()
+            torch.cuda.synchronize()
+            host[0] = time.perf_counter()
+            ev[0].record()
+            g_losses = step.generator_losses(bG, True)
+            ev[1].record()
+            host[1] = time.perf_counter()
+            g_losses["G_loss"].backward()
+            ev[2].record()
+            host[2] = time.perf_counter()
+            step.opt_G.step()
+            ev[3].record()
+            host[3] = time.perf_counter()
+            d_losses = step.discriminator_losses(bD)
+            ev[4].record()
+            host[4] = time.perf_counter()
+            d_losses["D_loss"].backward()
+            ev[5].record()
+            host[5] = time.perf_counter()
+            step.opt_D.step()
+            ev[6].record()
+            host[6] = time.perf_counter()
+            torch.cuda.synchronize()
+            kernel_ms = {}
+            for name, (a, b) in kernel_events:
+                kernel_ms[name] = kernel_ms.get(name, 0.0) + a.elapsed_time(b)
+            split.append(([ev[i].elapsed_time(ev[i + 1]) for i in range(6)],
+                          [1e3 * (host[i + 1] - host[i]) for i in range(6)],
+                          ev[0].elapsed_time(ev[6]), kernel_ms))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    log({"gan_step_split_ms": {
+            p: {"device": [d[i] for d, _, _, _ in split],
+                "host_enqueue": [h[i] for _, h, _, _ in split]}
+            for i, p in enumerate(parts)},
+         "step_device_ms": [t for _, _, t, _ in split],
+         "kernel_device_ms_per_step": [k for _, _, _, k in split],
+         "card": card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -732,6 +1071,9 @@ def main() -> int:
     mas = mas_phase(dev)
     with tempfile.TemporaryDirectory() as root:
         trained = training_phase(dev, root, card)
+    gan = gan_kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as root:
+        gan_launches = gan_training_phase(dev, root, card)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",
@@ -760,6 +1102,22 @@ def main() -> int:
                     "max_abs_err": mas["err"], "ms": mas["ms"],
                     "plain_ms": mas["plain_ms"], "bound_ms": mas["bound"][0],
                     "bound_by": mas["bound"][1], "library_ms": None})
+    from tts_tpu_torch.ops.cuda import grouped_conv_grad as GCK
+    from tts_tpu_torch.ops.cuda import stft_mag as SK
+    for name, source, replaces in (
+            (SK.KERNEL, "tts_tpu_torch/ops/cuda/stft_mag.cu",
+             "tts_tpu/ops/pallas/stft_kernel.py:68"),
+            (GCK.WGRAD, "tts_tpu_torch/ops/cuda/grouped_conv_grad.cu",
+             "tts_tpu/ops/pallas/grouped_conv_grad.py:104"),
+            (GCK.DGRAD, "tts_tpu_torch/ops/cuda/grouped_conv_grad.cu",
+             "tts_tpu/ops/pallas/grouped_conv_grad.py:188")):
+        r = gan[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": gan_launches[name],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                        "bound_by": r["bound"][1],
+                        "library_ms": r["library_ms"]})
     log(card)  # as nvidia-smi prints it: name, power limit
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

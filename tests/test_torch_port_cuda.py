@@ -6,8 +6,11 @@ neither JAX nor tts_tpu, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerance: 1e-4 of the largest reference magnitude (float32; TF32 is off for
-the plain versions' cuDNN convs and matmuls); the alignment path (0/1) is
-compared exactly.
+the plain versions' cuDNN convs and matmuls), the STFT magnitude and the
+grouped conv's weight gradient included (sums of up to 2048 and B x L_out
+products in another order); the grouped conv's input gradient within 1e-5
+absolute (about 44 products of unit-scale values); the alignment path (0/1)
+exactly.
 """
 
 import pytest
@@ -18,7 +21,11 @@ from tts_tpu_torch.models.vocoder.multiband_melgan import \
 from tts_tpu_torch.ops.cuda import build
 from tts_tpu_torch.ops.cuda import fused_melgan as M
 from tts_tpu_torch.ops.cuda import fused_resstack as R
+from tts_tpu_torch.ops import grouped_conv as GC
+from tts_tpu_torch.ops import stft as S
+from tts_tpu_torch.ops.cuda import grouped_conv_grad as GCK
 from tts_tpu_torch.ops.cuda import mas as MAS
+from tts_tpu_torch.ops.cuda import stft_mag as SK
 from tts_tpu_torch.ops.mas import maximum_path, maximum_path_torch
 
 
@@ -119,3 +126,117 @@ def test_mas_wrapper_rejects_cpu_operand(cuda):
     value, mask = _mas_inputs(2, 5, 9, seed=0, ties=False)
     with pytest.raises(ValueError):
         maximum_path(value.to(cuda), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,win,T", [(171, 10, 60, 700),
+                                             (683, 60, 300, 1500),
+                                             (2048, 240, 1200, 5000)])
+def test_stft_kernel_matches_plain(cuda, n_fft, hop, win, T):
+    """Odd n_fft and bins that are no multiple of the kernel's tiles."""
+    y = torch.randn(3, T, generator=torch.Generator().manual_seed(n_fft))
+    want = S.stft_magnitude(y, n_fft, hop, win)
+    before = build.LAUNCHES[SK.KERNEL]
+    got = S.stft_magnitude(y.to(cuda), n_fft, hop, win)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[SK.KERNEL] - before == 1
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_stft_function_backward_on_the_card(cuda):
+    """The kernel's Function against autograd through the plain version."""
+    y = torch.randn(2, 900, generator=torch.Generator().manual_seed(1),
+                    device="cpu").to(cuda).requires_grad_()
+    mag = S.stft_magnitude(y, 171, 10, 60)
+    w = torch.randn(mag.shape, device=cuda)
+    (mag * w).sum().backward()
+    yp = y.detach().clone().requires_grad_()
+    fr = S.frames(yp, 171, 10)
+    plain = S.stft_magnitude_torch(fr.reshape(-1, 171),
+                                   *S.dft_banks(171, 60, cuda))
+    (plain.reshape(mag.shape) * w).sum().backward()
+    _close(y.grad, yp.grad)
+
+
+# (B, L, groups, n, k, stride)
+GC_GEOMS = [(4, 1024, 16, 4, 41, 4), (2, 2052, 64, 4, 41, 4),
+            (3, 256, 8, 4, 21, 4), (2, 300, 5, 2, 9, 2), (1, 70, 3, 1, 7, 1)]
+
+
+def _gc_inputs(geom):
+    B, L, g, n, k, s = geom
+    gen = torch.Generator().manual_seed(L)
+    x = torch.randn(B, g, L, generator=gen)
+    w = 0.1 * torch.randn(g * n, 1, k, generator=gen)
+    lout = (L + 2 * ((k - 1) // 2) - k) // s + 1
+    dy = torch.randn(B, g * n, lout, generator=gen)
+    return x, w, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", GC_GEOMS)
+def test_grouped_conv_kernels_match_plain(cuda, geom):
+    """Both kernels against the plain tap loops; ragged chunks of output
+    positions, strides 1-4, 1-4 outputs per group."""
+    B, L, g, n, k, s = geom
+    x, w, dy = _gc_inputs(geom)
+    before = dict(build.LAUNCHES)
+    dw = GC.grouped_conv_wgrad(x.to(cuda), dy.to(cuda), k, s, g)
+    dx = GC.grouped_conv_dgrad(dy.to(cuda), w.to(cuda), L, s, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GCK.WGRAD] - before.get(GCK.WGRAD, 0) == 1
+    assert build.LAUNCHES[GCK.DGRAD] - before.get(GCK.DGRAD, 0) == 1
+    _close(dw, GC.grouped_conv_wgrad_torch(x, dy, k, s, g))
+    torch.testing.assert_close(
+        dx.cpu(), GC.grouped_conv_dgrad_torch(dy, w, L, s, g), rtol=0,
+        atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_discriminator_backward_runs_the_kernels(cuda):
+    """A full-width discriminator's backward on the card launches both
+    kernels for down_0..2 of every scale and matches the CPU's plain
+    gradients."""
+    from tts_tpu_torch.models.vocoder.melgan import \
+        MelganMultiscaleDiscriminator
+    torch.manual_seed(0)
+    disc = MelganMultiscaleDiscriminator()
+    y = torch.randn(2, 1, 4096, generator=torch.Generator().manual_seed(2))
+    scores, _ = disc(y)
+    sum(s.square().mean() for s in scores).backward()
+    want = {n: p.grad.clone() for n, p in disc.named_parameters()}
+    disc.zero_grad()
+    disc.to(cuda)
+    before = dict(build.LAUNCHES)
+    scores, _ = disc(y.to(cuda))
+    sum(s.square().mean() for s in scores).backward()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GCK.WGRAD] - before.get(GCK.WGRAD, 0) == 9
+    # down_0's input gradient too: conv_in's weights need it
+    assert build.LAUNCHES[GCK.DGRAD] - before.get(GCK.DGRAD, 0) == 9
+    for name, p in disc.named_parameters():
+        _close(p.grad, want[name])
+
+
+@pytest.mark.cuda
+def test_new_wrappers_never_fall_back(cuda, monkeypatch):
+    """CUDA tensors launch the kernels or raise: the plain versions are
+    never reached, and a CPU operand beside a CUDA one raises."""
+    def boom(*args):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(S, "stft_magnitude_torch", boom)
+    monkeypatch.setattr(GC, "grouped_conv_wgrad_torch", boom)
+    monkeypatch.setattr(GC, "grouped_conv_dgrad_torch", boom)
+    S.stft_magnitude(torch.randn(2, 600, device=cuda), 171, 10, 60)
+    x, w, dy = (t.to(cuda) for t in _gc_inputs(GC_GEOMS[0]))
+    GC.grouped_conv_wgrad(x, dy, 41, 4, 16)
+    GC.grouped_conv_dgrad(dy, w, 1024, 4, 16)
+    with pytest.raises(ValueError):
+        SK.stft_mag_cuda(torch.randn(4, 171, device=cuda),
+                         *S.dft_banks(171, 60, torch.device("cpu")))
+    with pytest.raises(ValueError):
+        GCK.grouped_conv_wgrad_cuda(x, dy.cpu(), 41, 4, 16)
+    with pytest.raises(ValueError):     # 4 inputs per group: not taken
+        GCK.grouped_conv_dgrad_cuda(dy, w.repeat(1, 4, 1).contiguous(), 1024,
+                                    4, 16)

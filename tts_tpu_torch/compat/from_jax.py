@@ -15,8 +15,10 @@ norm is folded), so it also maps any tree of the params' structure leaf by
 leaf: the training tests map jax gradients and optax-updated params with it
 and compare them with the port's ``.grad`` and parameters by name.
 ``melgan_state_dict_from_jax`` folds weight norm first, so it maps params
-only. The other direction, port -> tts_tpu, is
-``tts_tpu/compat/torch_port.py`` in the JAX package.
+only (and trees without weight norm leaf by leaf);
+``melgan_discriminator_state_dict_from_jax`` moves leaves only. The other
+direction, port -> tts_tpu, is ``tts_tpu/compat/torch_port.py`` in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -211,4 +213,24 @@ def melgan_state_dict_from_jax(params: Tree, upsample_factors: Sequence[int],
             conv(f"{dst}.blocks.{j}.4", st[f"block_{j}_conv2"]["conv"])
             conv(f"{dst}.shortcuts.{j}", st[f"block_{j}_shortcut"])
     conv(f"layers.{4 + 3 * len(upsample_factors)}", p["proj_out"]["conv"])
+    return _tensors(sd)
+
+
+def melgan_discriminator_state_dict_from_jax(params: Tree
+                                             ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``MelganMultiscaleDiscriminator`` params ->
+    the port's state dict, layer names kept (``disc_{i}.conv_in``,
+    ``down_{i}``, ``conv_post1``, ``conv_out``). Every conv is weight-normed
+    per output channel on both sides, so (v, g) transfer verbatim, grouped
+    kernels (k, in / groups, out) included. Leaves are only moved and
+    reshaped, so gradient trees map the same way."""
+    sd: Dict[str, np.ndarray] = {}
+    for disc, node in params.items():
+        scales = _weight_norm_scales(node)
+        for name, conv in node.items():
+            if name.startswith("WeightNorm_"):
+                continue
+            sd[f"{disc}.{name}.weight_v"] = _conv(np.asarray(conv["kernel"]))
+            sd[f"{disc}.{name}.weight_g"] = scales[name].reshape(-1, 1, 1)
+            sd[f"{disc}.{name}.bias"] = np.asarray(conv["bias"])
     return _tensors(sd)

@@ -22,6 +22,10 @@ class MultibandMelganGenerator(MelganGenerator):
                          num_res_blocks=num_res_blocks, **kwargs)
         self.pqmf = PQMF(N=out_channels)
 
+    def pqmf_analysis(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1, T) waveform -> (B, N, T / N) subbands (differentiable)."""
+        return self.pqmf.analysis(x)
+
     @torch.no_grad()
     def inference(self, c: torch.Tensor) -> torch.Tensor:
         """(B, 80, T) -> (B, 1, T * hop * N) waveform."""

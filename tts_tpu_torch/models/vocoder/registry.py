@@ -1,5 +1,6 @@
-"""Vocoder generator factory by config name
-(≙ tts_tpu/models/vocoder/registry.py::setup_generator, MelGAN family)."""
+"""Vocoder model factories by config name
+(≙ tts_tpu/models/vocoder/registry.py: ``setup_generator`` and
+``setup_discriminator``, MelGAN family)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,17 @@ def setup_generator(c: Dict[str, Any], use_weight_norm: bool = True):
             num_res_blocks=params.get("num_res_blocks", 4),
             use_weight_norm=use_weight_norm)
     raise KeyError(f"unknown or not yet ported generator model: {name}")
+
+
+def setup_discriminator(c: Dict[str, Any]):
+    name = c["discriminator_model"].lower()
+    params = dict(c.get("discriminator_model_params", {}))
+    if name == "melgan_multiscale_discriminator":
+        from tts_tpu_torch.models.vocoder.melgan import \
+            MelganMultiscaleDiscriminator
+        return MelganMultiscaleDiscriminator(
+            num_scales=params.get("num_scales", 3))
+    if name == "melgan_discriminator":
+        from tts_tpu_torch.models.vocoder.melgan import MelganDiscriminator
+        return MelganDiscriminator()
+    raise KeyError(f"unknown or not yet ported discriminator model: {name}")

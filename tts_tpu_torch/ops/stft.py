@@ -1,0 +1,102 @@
+"""STFT magnitude for the GAN spectral losses (≙ tts_tpu/ops/pallas/
+stft_kernel.py: ``_dft_banks``, ``_frames``, ``_stft_mag_frames`` with its
+VJP, ``stft_magnitude``).
+
+|STFT| is a product of the frames with window-folded cosine and sine DFT
+banks, then sqrt(re^2 + im^2 + 1e-12). ``stft_magnitude`` frames the signal
+(librosa's center/reflect padding) and runs ``StftMagnitudeFrames``: its
+forward is the hand-written kernel (``ops/cuda/stft_mag.cu``) for a CUDA
+tensor and the plain version ``stft_magnitude_torch`` for a CPU tensor;
+its backward is tts_tpu's analytic one, recomputing re and im, in plain
+matmuls on either device (tts_tpu computes it in XLA, outside any Pallas
+kernel).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tts_tpu_torch.audio import mel as _mel
+from tts_tpu_torch.ops.cuda import stft_mag as stft_cuda
+
+_EPS = 1e-12
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_banks_np(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    window = _mel.pad_center(_mel.hann_window(win_length), n_fft)
+    k = np.arange(n_fft)[:, None]
+    f = np.arange(n_fft // 2 + 1)[None, :]
+    ang = 2.0 * np.pi * k * f / n_fft
+    wr = (np.cos(ang) * window[:, None]).astype(np.float32)
+    wi = (-np.sin(ang) * window[:, None]).astype(np.float32)
+    return wr, wi
+
+
+@functools.lru_cache(maxsize=None)
+def dft_banks(n_fft: int, win_length: int, device: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Window-folded real-DFT banks (n_fft, n_fft // 2 + 1), float32, on
+    ``device``: the periodic Hann window of ``win_length`` centered in
+    n_fft, times cos and -sin."""
+    return tuple(torch.from_numpy(b).to(device)
+                 for b in _dft_banks_np(n_fft, win_length))
+
+
+def frames(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """(..., T) -> (..., n_frames, n_fft), reflect-padded by n_fft // 2 on
+    both sides (librosa's center=True)."""
+    lead, T = y.shape[:-1], y.shape[-1]
+    p = n_fft // 2
+    padded = F.pad(y.reshape(-1, 1, T), (p, p), mode="reflect")[:, 0]
+    out = padded.unfold(-1, n_fft, hop)
+    return out.reshape(*lead, out.shape[1], n_fft)
+
+
+def stft_magnitude_torch(frames2d: torch.Tensor, wr: torch.Tensor,
+                         wi: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernel: (N, n_fft) frames -> (N, bins)."""
+    re = frames2d @ wr
+    im = frames2d @ wi
+    return torch.sqrt(re * re + im * im + _EPS)
+
+
+class StftMagnitudeFrames(torch.autograd.Function):
+    """|DFT| of each row of ``frames2d`` (N, n_fft), float32, with tts_tpu's
+    analytic backward: d|z| = (re dre + im dim) / max(|z|, 1e-7)."""
+
+    @staticmethod
+    def forward(ctx, frames2d: torch.Tensor, n_fft: int, win_length: int):
+        wr, wi = dft_banks(n_fft, win_length, frames2d.device)
+        if frames2d.device.type == "cpu":
+            mag = stft_magnitude_torch(frames2d, wr, wi)
+        else:
+            mag = stft_cuda.stft_mag_cuda(frames2d, wr, wi)
+        ctx.save_for_backward(frames2d, mag)
+        ctx.banks = (n_fft, win_length)
+        return mag
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        frames2d, mag = ctx.saved_tensors
+        wr, wi = dft_banks(*ctx.banks, frames2d.device)
+        # re and im recomputed (two matmuls) rather than stored
+        re = frames2d @ wr
+        im = frames2d @ wi
+        scale = g / mag.clamp_min(1e-7)
+        dframes = (scale * re) @ wr.T + (scale * im) @ wi.T
+        return dframes, None, None
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: int) -> torch.Tensor:
+    """|STFT(y)|: float32 (..., T) -> (..., n_frames, n_fft // 2 + 1)."""
+    fr = frames(y, n_fft, hop_length)
+    mag = StftMagnitudeFrames.apply(fr.reshape(-1, n_fft).contiguous(),
+                                    n_fft, win_length)
+    return mag.reshape(*fr.shape[:-1], mag.shape[-1])

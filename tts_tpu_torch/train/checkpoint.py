@@ -79,13 +79,12 @@ def save_best_model(current_loss: float, best_loss: float, output_dir: str,
 
 def latest_checkpoint(output_dir: str, prefix: str = "checkpoint"
                       ) -> Optional[str]:
-    """The checkpoint with the highest step number, or None."""
-    paths = glob.glob(os.path.join(output_dir, f"{prefix}_*.pt"))
-    if not paths:
-        return None
-
-    def step_of(p):
-        m = re.search(r"_(\d+)\.pt$", p)
-        return int(m.group(1)) if m else -1
-
-    return max(paths, key=step_of)
+    """The checkpoint ``<prefix>_<step>.pt`` with the highest step, or None
+    (``checkpoint_disc_<step>.pt`` is not a ``checkpoint``)."""
+    pattern = re.compile(re.escape(prefix) + r"_(\d+)\.pt$")
+    steps = {}
+    for path in glob.glob(os.path.join(output_dir, f"{prefix}_*.pt")):
+        m = pattern.match(os.path.basename(path))
+        if m:
+            steps[path] = int(m.group(1))
+    return max(steps, key=steps.get) if steps else None
