@@ -58,11 +58,34 @@ Phases, in order; any failure exits non-zero with its traceback:
    (generator and discriminator updates, each forward / backward /
    optimizer, device and host-enqueue time, kernels' device time).
 
+9. taco2 kernels: bench.py's Tacotron2 at full width (r = 2, batch 64,
+   128 symbols, seeded): the encoder BiLSTM kernel (B7) on the conv
+   stack's output and the decode kernels (B8) on B7's output, each against
+   its plain version (1e-4 of the largest magnitude; B8 over 16 steps, then
+   124 steps with the largest deviation of each output reported and every
+   output finite), with times, cuDNN's LSTM as B7's yardstick (B8 has
+   none) and the bound (B8: fp32 FLOPs of the conv form); then B8 at
+   serving's shape (one item, a 64-symbol bucket, 80 steps) timed, and
+   torch.profiler's device time by kernel for B7 and 16 decode steps at
+   both batches.
+10. taco2 serving: a seeded full-width configs/tacotron2_ljspeech.json
+   model (r 7, r_init 7, the DDC coarse decoder present; stopnet silenced,
+   80 decoder steps served) with the Multiband-MelGAN of phase 3, served
+   over HTTP: 3 requests must return finite, non-silent WAVs of 80 x 7
+   frames; the B7, B8, B1 and B2 launch counts (zeroed just before) must be
+   what the requests give; the audio must match the same Synthesizer on the
+   CPU within 1e-3 through 16-bit WAV (the first decoder step where the two
+   mels differ by more than 1e-4 is printed).
+11. taco2 batched: bench.py's taco2 pipeline (batch 64, 128 symbols, 124
+   steps at r = 2, then the generator on 248 frames): audio-seconds per
+   second and the split into encoder, decode, postnet and vocoder.
+
 The second-last line is the kernels JSON; the last is the ok line.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,6 +145,26 @@ def bound_ms(nbytes: float, flops: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def kernel_profile(fn) -> dict:
+    """Device time (us) and launches by kernel name over one call of fn,
+    from torch.profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0:
+            name = re.search(r"(\w+(<\w+>)?)\(", ev.key)
+            out[name.group(1) if name else ev.key[:60]] = {
+                "us": us, "launches": ev.count}
+    return out
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1040,6 +1083,365 @@ def gan_training_phase(dev, root: str, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: Tacotron2 kernels (B7 encoder BiLSTM, B8 whole decode)
+# ---------------------------------------------------------------------------
+
+TACO_BATCH, TACO_TEXT, TACO_STEPS, TACO_R = 64, 128, 124, 2   # bench.py
+TACO_SERVED_STEPS = 80     # the served config's step budget (phase 10)
+
+
+def taco2_bench_model(dev):
+    """bench.py's Tacotron2 (full width, r = 2, 128 symbols), seeded."""
+    from tts_tpu_torch.models.tacotron2 import Tacotron2
+    torch.manual_seed(SEED)
+    return Tacotron2(num_chars=128, r=TACO_R).to(dev).eval()
+
+
+def decode_flops(B: int, T: int, D: int, steps: int, p) -> float:
+    """fp32 FLOPs of `steps` decode steps: the prenet, both LSTMs' fused
+    products, the query projection, the location conv and dense layer, the
+    energies (v . tanh), the context, the projection and the stop logit."""
+    M, P1 = p["pw1"].shape
+    P2 = p["pw2"].shape[1]
+    H, A = p["qk"].shape
+    KL, _, F = p["kloc"].shape
+    per_item = (M * P1 + P1 * P2 + p["aw"].numel() + H * A
+                + T * (KL * 2 * F + F * A + A + D)
+                + p["dw"].numel() + p["projw"].numel() + p["stopw"].numel())
+    return 2.0 * B * per_item * steps
+
+
+def taco2_kernel_phase(dev):
+    from tts_tpu_torch.infer.fast_decode import packed_weights
+    from tts_tpu_torch.ops import bilstm as BL
+    from tts_tpu_torch.ops import taco2_decode as TD
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+
+    model = taco2_bench_model(dev)
+    B, T = TACO_BATCH, TACO_TEXT
+    g = torch.Generator(dev).manual_seed(1)
+    text = torch.randint(0, 128, (B, T), device=dev, generator=g)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    lstm, packed, w_in = packed_weights(model)
+    results = {}
+
+    # B7 on the main path's input: the embedding through the conv stack
+    with torch.no_grad():
+        x = model.embedding(text).transpose(1, 2)
+        for layer in model.encoder.convolutions:
+            x = layer(x)
+        x = x.transpose(1, 2).contiguous()
+    got = BL.bilstm(x, lens, *lstm)
+    want = BL.bilstm_torch(x, lens, *lstm)
+    C, H = x.shape[2], lstm[0].shape[1] // 4
+    # yardstick: cuDNN's bidirectional LSTM with the same weights
+    cudnn = torch.nn.LSTM(C, H, batch_first=True, bidirectional=True).to(dev)
+    cudnn.load_state_dict(model.encoder.lstm.state_dict())
+    packed_x = torch.nn.utils.rnn.pack_padded_sequence(
+        x, lens.cpu(), batch_first=True, enforce_sorted=False)
+
+    def library():
+        with torch.no_grad():
+            return cudnn(packed_x)[0]
+    lib_out, _ = torch.nn.utils.rnn.pad_packed_sequence(library(),
+                                                        batch_first=True)
+    results[BLK.KERNEL] = dict(
+        err=check_close(BLK.KERNEL, got, want),
+        ms=cuda_time_ms(lambda: BL.bilstm(x, lens, *lstm), 10),
+        plain_ms=cuda_time_ms(lambda: BL.bilstm_torch(x, lens, *lstm), 2,
+                              warmup=1),
+        library_ms=cuda_time_ms(library, 10),
+        bound=bound_ms(nbytes(x, got, *lstm),
+                       2 * 2.0 * B * T * (C + H) * 4 * H))
+    log({"kernel": BLK.KERNEL, "kernel_ms": results[BLK.KERNEL]["ms"],
+         "plain_ms": results[BLK.KERNEL]["plain_ms"],
+         "library_ms": results[BLK.KERNEL]["library_ms"],
+         "bound_ms": results[BLK.KERNEL]["bound"][0],
+         "bound_by": results[BLK.KERNEL]["bound"][1],
+         "max_abs_err": results[BLK.KERNEL]["err"],
+         "cudnn_vs_kernel_max_abs": float((lib_out - got).abs().max()),
+         "launches_per_call": 1 + T,
+         "shapes": f"B={B}, T={T}, C={C}, H={H} per direction"})
+
+    # B8 on the main path's inputs: the kernel's encoder outputs, all valid
+    enc = got
+    pi = enc @ w_in
+    mask = torch.ones(B, T, device=dev)
+    short = 16
+    got = TD.fused_decode(enc, pi, mask, packed, short, TACO_R)
+    want = TD.decode_torch(enc, pi, mask, packed, short, TACO_R)
+    err = max(check_close(f"{TDK.KERNEL} {name} ({short} steps)", a, b)
+              for name, a, b in zip(("frames", "stop", "align"), got, want))
+    full = TD.fused_decode(enc, pi, mask, packed, TACO_STEPS, TACO_R)
+    ref = TD.decode_torch(enc, pi, mask, packed, TACO_STEPS, TACO_R)
+    for t in full:
+        assert torch.isfinite(t).all(), "non-finite decode output"
+    drift = {name: float((a - b).abs().max()) for name, a, b in
+             zip(("frames", "stop", "align"), full, ref)}
+    flops = decode_flops(B, T, enc.shape[2], TACO_STEPS, packed)
+    results[TDK.KERNEL] = dict(
+        err=err,
+        ms=cuda_time_ms(lambda: TD.fused_decode(enc, pi, mask, packed,
+                                                TACO_STEPS, TACO_R), 3),
+        plain_ms=cuda_time_ms(lambda: TD.decode_torch(
+            enc, pi, mask, packed, TACO_STEPS, TACO_R), 1, warmup=1),
+        library_ms=None,
+        bound=bound_ms(nbytes(enc, pi, mask, *packed.values(), *full),
+                       flops))
+    r = results[TDK.KERNEL]
+    log({"kernel": TDK.KERNEL, "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+         "library_ms": None, "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "max_abs_err": err,
+         f"max_abs_dev_{TACO_STEPS}_steps": drift,
+         f"max_abs_{TACO_STEPS}_steps": {
+             name: float(t.abs().max())
+             for name, t in zip(("frames", "stop", "align"), ref)},
+         "gflop": flops / 1e9,
+         "weights_mb": nbytes(*packed.values()) / 1e6,
+         "launches_per_call": TDK.LAUNCHES_PER_STEP * TACO_STEPS,
+         "shapes": f"B={B}, T={T}, {TACO_STEPS} steps, r={TACO_R}"})
+
+    # where the time goes, by kernel: B7, then 16 decode steps at this
+    # batch and at serving's (one item, a 64-symbol bucket, whose 80 steps
+    # are also timed)
+    one = [t[:1, :64].contiguous() for t in (enc, pi, mask)]
+    serve_ms = cuda_time_ms(lambda: TD.fused_decode(*one, packed,
+                                                    TACO_SERVED_STEPS,
+                                                    TACO_R), 3)
+    serve_out = TD.fused_decode(*one, packed, TACO_SERVED_STEPS, TACO_R)
+    serve_bound = bound_ms(
+        nbytes(*one, *packed.values(), *serve_out),
+        decode_flops(1, 64, enc.shape[2], TACO_SERVED_STEPS, packed))
+    log({"taco2_kernel_profile_us": {
+            "bilstm": kernel_profile(lambda: BL.bilstm(x, lens, *lstm)),
+            f"decode_B{B}_16_steps": kernel_profile(
+                lambda: TD.fused_decode(enc, pi, mask, packed, 16, TACO_R)),
+            "decode_B1_16_steps": kernel_profile(
+                lambda: TD.fused_decode(*one, packed, 16, TACO_R))},
+         f"decode_B1_T64_{TACO_SERVED_STEPS}_steps_ms": serve_ms,
+         "decode_B1_bound_ms": serve_bound[0],
+         "decode_B1_bound_by": serve_bound[1]})
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 10: Tacotron2 serving
+# ---------------------------------------------------------------------------
+
+def build_taco2(root: str):
+    """Seeded full-width configs/tacotron2_ljspeech.json (r 7 with r_init 7,
+    the DDC coarse decoder present) saved as a port checkpoint beside the
+    served copy of its config. Random weights stop at random, so the
+    stopnet is silenced (zero weights, bias -10), and the served config
+    cuts the step budget to TACO_SERVED_STEPS (560 frames, 6.5 s of audio):
+    the depth of the decode, not its width."""
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.text import num_symbols
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    c = load_config(os.path.join(here, "configs", "tacotron2_ljspeech.json"))
+    c["max_decoder_steps"] = TACO_SERVED_STEPS
+    torch.manual_seed(SEED)
+    model = setup_model(num_symbols(c["use_phonemes"]), 1, c)
+    stop = model.decoder.stopnet[1].linear_layer
+    with torch.no_grad():
+        stop.weight.zero_()
+        stop.bias.fill_(-10.0)
+    paths = {"taco2": os.path.join(root, "taco2.pt"),
+             "taco2_config": os.path.join(root, "tacotron2.json")}
+    torch.save({"model": model.state_dict()}, paths["taco2"])
+    with open(paths["taco2_config"], "w") as f:
+        json.dump(c, f)
+    return paths, c
+
+
+def first_divergence(a: np.ndarray, b: np.ndarray, r: int, tol=1e-4):
+    """The decoder step where two (T, n_mels) mels first differ by more
+    than `tol`, or None."""
+    bad = np.nonzero(np.abs(a - b).max(axis=1) > tol)[0]
+    return int(bad[0]) // r if len(bad) else None
+
+
+def taco2_serving_phase(dev, root: str):
+    from tts_tpu_torch.audio.processor import read_wav, wav_to_bytes
+    from tts_tpu_torch.infer.fast_decode import supports_fused_decode
+    from tts_tpu_torch.infer.synthesis import (bucket_text_length, synthesis,
+                                               text_to_seqvec)
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+    from tts_tpu_torch.server.server import create_server
+
+    voc = build_models(root)
+    paths, cfg = build_taco2(root)
+    synth = Synthesizer(paths["taco2"], paths["taco2_config"], voc["voc"],
+                        voc["vocoder_config"], device=dev)
+    assert supports_fused_decode(synth.model) and synth.model.r == 7
+    assert hasattr(synth.model, "coarse_decoder")
+    assert synth._packed is not None, "vocoder must take the kernel chain"
+    hop = synth.vocoder_ap.hop_length
+    frames = TACO_SERVED_STEPS * synth.model.r
+    expect = frames * hop + 10000          # mel bucket cut, sentence gap
+    texts = ["Hello world!",
+             "The birch canoe slid on the smooth planks.",
+             "Four hours of steady work faced us, and the source of the huge "
+             "river was clear."]
+    server = create_server(synth, port=0, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    served = []
+    try:
+        build.reset_launches()
+        for text in texts:
+            url = (f"http://127.0.0.1:{port}/api/tts?"
+                   + urllib.parse.urlencode({"text": text}))
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(url, timeout=300) as r:
+                status, body = r.status, r.read()
+            ms = (time.perf_counter() - t0) * 1e3
+            assert status == 200 and body[:4] == b"RIFF", (status, body[:16])
+            wav, _ = read_wav(body)
+            assert len(wav) == expect, (len(wav), expect)
+            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+            served.append(wav)
+            log({"taco2_request": text[:40], "status": status,
+                 "samples": len(wav), "mel_frames": frames,
+                 "latency_ms": ms})
+        launches = dict(build.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    log({"taco2_main_path_launches": launches, "requests": len(texts)})
+    buckets = [bucket_text_length(len(text_to_seqvec(t, cfg))) for t in texts]
+    want = {BLK.KERNEL: sum(1 + b for b in buckets),
+            TDK.KERNEL: len(texts) * TACO_SERVED_STEPS
+            * TDK.LAUNCHES_PER_STEP}
+    for name, n in want.items():
+        assert launches.get(name, 0) == n, (name, launches.get(name), n)
+    for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+        assert launches.get(name, 0) > 0, f"{name} was not launched"
+
+    # the same requests on the CPU (plain versions) as the reference,
+    # through the same 16-bit WAV encoding (1 LSB = 3.1e-5)
+    cpu = Synthesizer(paths["taco2"], paths["taco2_config"], voc["voc"],
+                      voc["vocoder_config"], device="cpu")
+    errs, steps_apart = [], []
+    for text, wav in zip(texts, served):
+        ref, _ = read_wav(wav_to_bytes(cpu.tts(text), synth.ap.sample_rate))
+        assert len(ref) == len(wav), (len(ref), len(wav))
+        errs.append(float(np.abs(ref - wav).max()))
+        mel_dev = synthesis(synth.model, text, cfg, dev)["postnet_outputs"]
+        mel_cpu = synthesis(cpu.model, text, cfg,
+                            torch.device("cpu"))["postnet_outputs"]
+        steps_apart.append(first_divergence(mel_dev, mel_cpu, 7))
+    log({"taco2_served_vs_cpu_max_abs_err": errs,
+         "first_step_mel_differs_by_1e-4": steps_apart})
+    assert max(errs) < 1e-3, errs
+
+    # where a warm request's time goes (B=1, without HTTP); both parts end
+    # in a copy to the host, so the host clock sees the card's work
+    for text in texts:
+        t0 = time.perf_counter()
+        mel = synthesis(synth.model, text, cfg, dev)
+        t1 = time.perf_counter()
+        synth._vocode(mel["postnet_outputs"])
+        t2 = time.perf_counter()
+        log({"taco2_request_breakdown": text[:40],
+             "text_and_tacotron2_ms": (t1 - t0) * 1e3,
+             "vocoder_ms": (t2 - t1) * 1e3})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: Tacotron2 batched throughput
+# ---------------------------------------------------------------------------
+
+def taco2_batched_phase(dev, card: str):
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.fast_decode import (packed_weights,
+                                                 taco2_fused_inference)
+    from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
+    from tts_tpu_torch.models.vocoder.registry import setup_generator
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.taco2_decode import fused_decode
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    model = taco2_bench_model(dev)
+    torch.manual_seed(SEED)
+    voc = setup_generator(load_config(os.path.join(here, "configs",
+                                                   "multiband_melgan.json")))
+    sd = fold_weight_norm(voc.state_dict())
+    vpacked = M.pack_generator_params(voc, sd, dev)
+    B, T = TACO_BATCH, TACO_TEXT
+    g = torch.Generator(dev).manual_seed(1)
+    text = torch.randint(0, 128, (B, T), device=dev, generator=g)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    frames = TACO_STEPS * TACO_R
+
+    def run():
+        out = taco2_fused_inference(model, text, lens, TACO_STEPS)
+        return M.megakernel_generator_apply(
+            voc, vpacked, out["postnet_outputs"].contiguous())
+
+    wav = run()
+    torch.cuda.synchronize()
+    assert wav.shape == (B, frames * 256, 1), wav.shape
+    assert torch.isfinite(wav).all()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    dt = times[1]
+
+    # the split of one batch, device time between events: the encoder
+    # (embedding, convs, B7, input projection), the decode (B8), the
+    # postnet with the stop masking, the vocoder
+    split = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        lstm, packed, w_in = packed_weights(model)
+        with torch.no_grad():
+            enc, mask = model.encode(text, lens, mask_pads=True,
+                                     packed_lstm=lstm)
+            pi = enc @ w_in
+        ev[1].record()
+        fr, stops, aligns = fused_decode(enc, pi, mask, packed, TACO_STEPS,
+                                         TACO_R)
+        ev[2].record()
+        with torch.no_grad():
+            out = model.finish(fr.transpose(0, 1).reshape(B, frames, 80),
+                               stops.t(), aligns.transpose(0, 1))
+        ev[3].record()
+        M.megakernel_generator_apply(voc, vpacked,
+                                     out["postnet_outputs"].contiguous())
+        ev[4].record()
+        torch.cuda.synchronize()
+        split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    audio_s = B * frames * 256 / 22050
+    log({"batched": "tacotron2 fused (B7, B8) + megakernel", "batch": B,
+         "t_text": T, "steps": TACO_STEPS, "r": TACO_R, "mel_frames": frames,
+         "s_per_batch": dt, "audio_s_per_s": audio_s / dt,
+         "spread_pct": 100 * (times[-1] - times[0]) / dt,
+         "split_ms": {p: [s[i] for s in split] for i, p in enumerate(
+             ("encoder", "decode", "postnet", "vocoder"))},
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1074,6 +1476,10 @@ def main() -> int:
     gan = gan_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as root:
         gan_launches = gan_training_phase(dev, root, card)
+    taco = taco2_kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as root:
+        taco_launches = taco2_serving_phase(dev, root)
+    taco2_batched_phase(dev, card)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",
@@ -1114,6 +1520,20 @@ def main() -> int:
         r = gan[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": gan_launches[name],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                        "bound_by": r["bound"][1],
+                        "library_ms": r["library_ms"]})
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+    for name, source, replaces in (
+            (BLK.KERNEL, "tts_tpu_torch/ops/cuda/bilstm.cu",
+             "tts_tpu/ops/pallas/fused_bilstm.py:90"),
+            (TDK.KERNEL, "tts_tpu_torch/ops/cuda/taco2_decode.cu",
+             "tts_tpu/ops/pallas/fused_taco2_decode.py:237")):
+        r = taco[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": taco_launches[name],
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1],

@@ -8,9 +8,10 @@ neither JAX nor tts_tpu, so it also runs where only PyTorch is installed:
 Tolerance: 1e-4 of the largest reference magnitude (float32; TF32 is off for
 the plain versions' cuDNN convs and matmuls), the STFT magnitude and the
 grouped conv's weight gradient included (sums of up to 2048 and B x L_out
-products in another order); the grouped conv's input gradient within 1e-5
-absolute (about 44 products of unit-scale values); the alignment path (0/1)
-exactly.
+products in another order), and so are the encoder BiLSTM and the Tacotron2
+decode (each output over all steps); the grouped conv's input gradient
+within 1e-5 absolute (about 44 products of unit-scale values); the
+alignment path (0/1) exactly.
 """
 
 import pytest
@@ -27,6 +28,10 @@ from tts_tpu_torch.ops.cuda import grouped_conv_grad as GCK
 from tts_tpu_torch.ops.cuda import mas as MAS
 from tts_tpu_torch.ops.cuda import stft_mag as SK
 from tts_tpu_torch.ops.mas import maximum_path, maximum_path_torch
+from tts_tpu_torch.ops import bilstm as BL
+from tts_tpu_torch.ops import taco2_decode as TD
+from tts_tpu_torch.ops.cuda import bilstm as BLK
+from tts_tpu_torch.ops.cuda import taco2_decode as TDK
 
 
 @pytest.fixture
@@ -240,3 +245,119 @@ def test_new_wrappers_never_fall_back(cuda, monkeypatch):
     with pytest.raises(ValueError):     # 4 inputs per group: not taken
         GCK.grouped_conv_dgrad_cuda(dy, w.repeat(1, 4, 1).contiguous(), 1024,
                                     4, 16)
+
+
+# ---------------------------------------------------------------------------
+# Tacotron2: encoder BiLSTM (B7) and the whole decode (B8)
+# ---------------------------------------------------------------------------
+
+def _bilstm_inputs(B, T, C, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, C, generator=g)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    lengths[0] = T
+    ws = [torch.randn(C + H, 4 * H, generator=g) / (C + H) ** 0.5
+          for _ in range(2)]
+    bs = [0.1 * torch.randn(4 * H, generator=g) for _ in range(2)]
+    return x, lengths, (ws[0], bs[0], ws[1], bs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,H", [(3, 11, 32, 16), (9, 37, 512, 256),
+                                     (64, 128, 512, 256)])
+def test_bilstm_kernel_matches_plain(cuda, B, T, C, H):
+    """Ragged lengths; batches that are no multiple of the 8 items a block
+    takes; bench.py's geometry (64 x 128 x 512)."""
+    x, lengths, weights = _bilstm_inputs(B, T, C, H, seed=T)
+    want = BL.bilstm(x, lengths, *weights)
+    before = build.LAUNCHES[BLK.KERNEL]
+    got = BL.bilstm(x.to(cuda), lengths.to(cuda),
+                    *(w.to(cuda) for w in weights))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[BLK.KERNEL] - before == 1 + T
+    _close(got, want)
+
+
+def _small_decoder(encoder_dim, attn_dim, r, r_init, seed):
+    from tts_tpu_torch.models.tacotron2 import Tacotron2
+    torch.manual_seed(seed)
+    model = Tacotron2(num_chars=20, r=r, r_init=r_init,
+                      encoder_dim=encoder_dim, embedding_dim=encoder_dim,
+                      attn_dim=attn_dim)
+    return TD.pack_decoder_params(model.decoder)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,A,r,r_init", [(3, 37, 64, 32, 2, 3),
+                                              (2, 130, 512, 128, 7, 7)])
+def test_decode_kernel_matches_plain(cuda, B, T, D, A, r, r_init):
+    """12 steps from random encoder outputs with a ragged mask; T = 130 is
+    no multiple of the attention kernel's 32-position tiles."""
+    packed = _small_decoder(D, A, r, r_init, seed=T)
+    g = torch.Generator().manual_seed(T)
+    enc = torch.randn(B, T, D, generator=g)
+    pi = torch.randn(B, T, A, generator=g)
+    lengths = torch.tensor([T] + [T // 2] * (B - 1))
+    mask = torch.arange(T)[None] < lengths[:, None]
+    want = TD.fused_decode(enc, pi, mask, packed, 12, r)
+    before = build.LAUNCHES[TDK.KERNEL]
+    got = TD.fused_decode(enc.to(cuda), pi.to(cuda), mask.to(cuda),
+                          {k: v.to(cuda) for k, v in packed.items()}, 12, r)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[TDK.KERNEL] - before == 12 * TDK.LAUNCHES_PER_STEP
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        _close(g_, w_)
+
+
+@pytest.mark.cuda
+def test_fused_inference_on_the_card(cuda):
+    """The whole fast path (embedding, convs, B7, B8, postnet) on the card
+    against the same model on the CPU."""
+    from tts_tpu_torch.infer.fast_decode import taco2_fused_inference
+    from tts_tpu_torch.models.tacotron2 import Tacotron2
+    torch.manual_seed(0)
+    model = Tacotron2(num_chars=20, r=2, encoder_dim=64, embedding_dim=64,
+                      attn_dim=32, max_decoder_steps=10).eval()
+    text = torch.randint(1, 20, (2, 19), generator=torch.Generator()
+                         .manual_seed(1))
+    lengths = torch.tensor([19, 12])
+    want = taco2_fused_inference(model, text, lengths)
+    model.to(cuda)
+    before = dict(build.LAUNCHES)
+    got = taco2_fused_inference(model, text.to(cuda), lengths.to(cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[BLK.KERNEL] - before.get(BLK.KERNEL, 0) == 1 + 19
+    assert build.LAUNCHES[TDK.KERNEL] - before.get(TDK.KERNEL, 0) == \
+        10 * TDK.LAUNCHES_PER_STEP
+    assert torch.equal(got["mel_lengths"].cpu(), want["mel_lengths"])
+    for key in ("decoder_outputs", "postnet_outputs", "alignments",
+                "stop_logits"):
+        _close(got[key], want[key])
+
+
+@pytest.mark.cuda
+def test_taco2_wrappers_refuse_bf16_and_never_fall_back(cuda, monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(BL, "bilstm_torch", boom)
+    monkeypatch.setattr(TD, "decode_torch", boom)
+    x, lengths, weights = _bilstm_inputs(2, 5, 32, 16, seed=0)
+    x, lengths = x.to(cuda), lengths.to(cuda)
+    weights = [w.to(cuda) for w in weights]
+    BL.bilstm(x, lengths, *weights)
+    with pytest.raises(ValueError, match="float32"):
+        BL.bilstm(x, lengths, *weights, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        BL.bilstm(x.bfloat16(), lengths, *weights)
+    packed = {k: v.to(cuda) for k, v in
+              _small_decoder(64, 32, 2, 2, seed=0).items()}
+    enc, pi = torch.randn(2, 9, 64, device=cuda), torch.randn(2, 9, 32,
+                                                              device=cuda)
+    mask = torch.ones(2, 9, device=cuda)
+    TD.fused_decode(enc, pi, mask, packed, 2, 2)
+    with pytest.raises(ValueError, match="float32"):
+        TD.fused_decode(enc, pi, mask, packed, 2, 2,
+                        compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        TD.fused_decode(enc, pi.cpu(), mask, packed, 2, 2)

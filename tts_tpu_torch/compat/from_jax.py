@@ -16,7 +16,9 @@ leaf: the training tests map jax gradients and optax-updated params with it
 and compare them with the port's ``.grad`` and parameters by name.
 ``melgan_state_dict_from_jax`` folds weight norm first, so it maps params
 only (and trees without weight norm leaf by leaf);
-``melgan_discriminator_state_dict_from_jax`` moves leaves only. The other
+``melgan_discriminator_state_dict_from_jax`` moves leaves only;
+``tacotron2_state_dict_from_jax`` packs the per-gate LSTM kernels and adds
+the zero biases tts_tpu leaves out, so it maps params only. The other
 direction, port -> tts_tpu, is ``tts_tpu/compat/torch_port.py`` in the JAX
 package.
 """
@@ -234,3 +236,107 @@ def melgan_discriminator_state_dict_from_jax(params: Tree
             sd[f"{disc}.{name}.weight_g"] = scales[name].reshape(-1, 1, 1)
             sd[f"{disc}.{name}.bias"] = np.asarray(conv["bias"])
     return _tensors(sd)
+
+
+# ---------------------------------------------------------------------------
+# Tacotron2
+# ---------------------------------------------------------------------------
+
+def _lstm(sd: Dict[str, np.ndarray], dst: str, cell: Tree,
+          suffix: str = "") -> None:
+    """flax ``OptimizedLSTMCell`` (per-gate kernels ``i{g}`` / ``h{g}``,
+    the bias on the h side only, gates i, f, g, o) -> torch's packed
+    ``weight_ih`` / ``weight_hh`` (4H, in), the whole bias in ``bias_ih``
+    and zeros in ``bias_hh``."""
+    w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"])
+                           for g in "ifgo"], axis=1).T
+    w_hh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"])
+                           for g in "ifgo"], axis=1).T
+    b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in "ifgo"])
+    sd[f"{dst}.weight_ih{suffix}"] = w_ih
+    sd[f"{dst}.weight_hh{suffix}"] = w_hh
+    sd[f"{dst}.bias_ih{suffix}"] = b
+    sd[f"{dst}.bias_hh{suffix}"] = np.zeros_like(b)
+
+
+def _batchnorm(sd: Dict[str, np.ndarray], dst: str, p: Tree,
+               s: Tree) -> None:
+    sd[f"{dst}.weight"] = np.asarray(p["scale"])
+    sd[f"{dst}.bias"] = np.asarray(p["bias"])
+    sd[f"{dst}.running_mean"] = np.asarray(s["mean"])
+    sd[f"{dst}.running_var"] = np.asarray(s["var"])
+
+
+def _decoder_state_dict(sd: Dict[str, np.ndarray], dst: str, dec: Tree,
+                        stats: Tree) -> None:
+    for i in range(2):
+        layer = f"{dst}.prenet.linear_layers.{i}"
+        sd[f"{layer}.linear_layer.weight"] = \
+            np.asarray(dec["prenet"][f"linear_{i}"]["kernel"]).T
+        if f"bn_{i}" in dec["prenet"]:               # prenet_type "bn"
+            _batchnorm(sd, f"{layer}.batch_normalization",
+                       dec["prenet"][f"bn_{i}"], stats["prenet"][f"bn_{i}"])
+    _lstm(sd, f"{dst}.attention_rnn", dec["attention_rnn"])
+    _lstm(sd, f"{dst}.decoder_rnn", dec["decoder_rnn"])
+    att, adst = dec["attention"], f"{dst}.attention"
+    for name in ("query_layer", "inputs_layer", "v"):
+        sd[f"{adst}.{name}.linear_layer.weight"] = \
+            np.asarray(att[name]["kernel"]).T
+    # tts_tpu's v has no bias (softmax is shift-invariant): a zero one
+    sd[f"{adst}.v.linear_layer.bias"] = np.zeros((1,), np.float32)
+    if "location_conv" in att:
+        loc = f"{adst}.location_layer"
+        sd[f"{loc}.location_conv1d.weight"] = _conv(
+            np.asarray(att["location_conv"]["kernel"]))
+        sd[f"{loc}.location_dense.linear_layer.weight"] = \
+            np.asarray(att["location_dense"]["kernel"]).T
+    if "transition_agent" in att:
+        sd[f"{adst}.ta.weight"] = np.asarray(
+            att["transition_agent"]["kernel"]).T
+        sd[f"{adst}.ta.bias"] = np.asarray(att["transition_agent"]["bias"])
+    proj = dec["linear_projection"]
+    sd[f"{dst}.linear_projection.linear_layer.weight"] = \
+        np.asarray(proj["kernel"]).T
+    sd[f"{dst}.linear_projection.linear_layer.bias"] = np.asarray(proj["bias"])
+    stop = dec["stopnet"]["linear"]
+    sd[f"{dst}.stopnet.1.linear_layer.weight"] = np.asarray(stop["kernel"]).T
+    sd[f"{dst}.stopnet.1.linear_layer.bias"] = np.asarray(stop["bias"])
+
+
+def tacotron2_state_dict_from_jax(params: Tree, batch_stats: Tree
+                                  ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` Tacotron2 ``params`` and ``batch_stats`` (one speaker, no
+    GST, location-sensitive attention) -> the port's
+    ``Tacotron2`` state dict, Mozilla names. tts_tpu's ConvBN convs have no
+    bias (BatchNorm cancels it), so theirs map to zero; the attention's
+    ``v`` likewise. The coarse (DDC) and backward decoders map when the
+    tree has them. ``port_tacotron2`` in tts_tpu is the inverse."""
+    sd: Dict[str, np.ndarray] = {
+        "embedding.weight": np.asarray(params["embedding"]["embedding"])}
+
+    def convbn(dst: str, p: Tree, s: Tree) -> None:
+        w = _conv(np.asarray(p["conv"]["kernel"]))
+        sd[f"{dst}.convolution1d.weight"] = w
+        sd[f"{dst}.convolution1d.bias"] = np.zeros((w.shape[0],), np.float32)
+        _batchnorm(sd, f"{dst}.batch_normalization", p["bn"], s["bn"])
+
+    enc_p, enc_s = params["encoder"], batch_stats["encoder"]
+    for i in range(3):
+        convbn(f"encoder.convolutions.{i}", enc_p[f"conv_{i}"],
+               enc_s[f"conv_{i}"])
+    _lstm(sd, "encoder.lstm", enc_p["OptimizedLSTMCell_0"], "_l0")
+    _lstm(sd, "encoder.lstm", enc_p["OptimizedLSTMCell_1"], "_l0_reverse")
+    for name in ("decoder", "coarse_decoder", "backward_decoder"):
+        if name in params:
+            _decoder_state_dict(sd, name, params[name],
+                                batch_stats.get(name, {}))
+    post_p, post_s = params["postnet"], batch_stats["postnet"]
+    for i in range(len(post_p)):
+        convbn(f"postnet.convolutions.{i}", post_p[f"conv_{i}"],
+               post_s[f"conv_{i}"])
+    out = _tensors(sd)
+    for key in list(out):
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+    return out

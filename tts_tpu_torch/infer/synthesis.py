@@ -1,7 +1,7 @@
 """End-to-end synthesis helper: text -> id sequence -> model -> mel
 (≙ tts_tpu/infer/synthesis.py: ``text_to_seqvec``, ``bucket_text_length``,
-the Glow branch of ``run_model``, and ``synthesis``). PyTorch runs eagerly,
-so there is no compiled-function cache."""
+the Glow-TTS and Tacotron2 branches of ``run_model``, and ``synthesis``).
+PyTorch runs eagerly, so there is no compiled-function cache."""
 
 from __future__ import annotations
 
@@ -42,8 +42,21 @@ def run_model(model, inputs: torch.Tensor, c: Dict,
               generator: Optional[torch.Generator] = None,
               text_lengths: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
-    """Model-family dispatch; only Glow-TTS is ported."""
+    """Model-family dispatch (Glow-TTS, Tacotron2). A Tacotron2 whose
+    configuration ``supports_fused_decode`` runs ``taco2_fused_inference``
+    (the B7 and B8 kernels on the card), any other ``model.inference``; the
+    choice depends on the configuration only. Both compute tts_tpu's
+    ``Tacotron2.inference`` (``max_decoder_steps`` defaults to the model's
+    budget, with windowing where the configuration sets it)."""
     model_name = c.get("model", "tacotron2").lower()
+    if model_name == "tacotron2":
+        from tts_tpu_torch.infer.fast_decode import (supports_fused_decode,
+                                                     taco2_fused_inference)
+        if supports_fused_decode(model):
+            return taco2_fused_inference(model, inputs, text_lengths,
+                                         max_decoder_steps)
+        return model.inference(inputs, text_lengths,
+                               max_decoder_steps=max_decoder_steps)
     if model_name != "glow_tts":
         raise NotImplementedError(f"{model_name} is not ported yet")
     out = model.inference(

@@ -1,8 +1,11 @@
-"""Synthesizer: checkpointed Glow-TTS + MelGAN-family vocoder, sentence-wise
-(≙ tts_tpu/infer/synthesizer.py for the Glow + MelGAN path).
+"""Synthesizer: checkpointed Glow-TTS or Tacotron2 + MelGAN-family vocoder,
+sentence-wise (≙ tts_tpu/infer/synthesizer.py for these models).
 
 Checkpoints are ``torch.save({"model": state_dict, ...})`` files; a Mozilla
-TTS state dict loads as it is, since the port keeps its key names. On
+TTS state dict loads as it is, since the port keeps its key names, and a
+Tacotron2 checkpoint's ``"r"`` (a gradual-training run's r) is served. A
+Tacotron2 whose configuration the fused decode supports runs the B7 and B8
+kernels on the card (``infer/synthesis.py::run_model``). On
 ``cuda`` (the default) the vocoder always runs through the hand-written
 kernels: ``megakernel_inference`` when the upsample factors are even, else
 the per-stack path ``fused_inference``. On ``device="cpu"`` the same calls
@@ -22,7 +25,9 @@ from tts_tpu_torch import DeviceLike, resolve_device
 from tts_tpu_torch.audio import AudioProcessor
 from tts_tpu_torch.config import load_config
 from tts_tpu_torch.infer.synthesis import synthesis
+from tts_tpu_torch.models.glow_tts import GlowTTS
 from tts_tpu_torch.models.registry import setup_model
+from tts_tpu_torch.models.tacotron2 import Tacotron2
 from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
 from tts_tpu_torch.models.vocoder.registry import setup_generator
 from tts_tpu_torch.models.vocoder.serving import fused_inference, pack_stacks
@@ -39,9 +44,13 @@ def split_into_sentences(text: str) -> List[str]:
     return [s for s in parts if s]
 
 
-def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def load_checkpoint(path: str) -> Dict:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt["model"] if "model" in ckpt else ckpt
+    return ckpt if "model" in ckpt else {"model": ckpt}
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    return load_checkpoint(path)["model"]
 
 
 class Synthesizer:
@@ -54,9 +63,15 @@ class Synthesizer:
         self.model = setup_model(
             num_symbols(self.tts_config.get("use_phonemes", False)),
             self.tts_config.get("num_speakers", 1), self.tts_config)
-        self.model.load_state_dict(load_state_dict(tts_checkpoint))
+        ckpt = load_checkpoint(tts_checkpoint)
+        self.model.load_state_dict(ckpt["model"])
         self.model.to(self.device).eval()
-        self.model.store_inverse()
+        if isinstance(self.model, GlowTTS):
+            self.model.store_inverse()
+        # serve at the checkpoint's reduction factor: a gradual-training
+        # run stopped mid-schedule serves at its trained r, not the config's
+        if isinstance(self.model, Tacotron2) and ckpt.get("r"):
+            self.model.set_r(int(ckpt["r"]))
 
         self.vocoder_config = load_config(vocoder_config)
         self.vocoder_ap = AudioProcessor(**self.vocoder_config.audio)

@@ -1,5 +1,5 @@
-"""TTS model factory from config (≙ tts_tpu/models/registry.py; the
-Glow-TTS branch only — the Tacotron family comes in a later slice)."""
+"""TTS model factory from config (≙ tts_tpu/models/registry.py; the Glow-TTS
+and Tacotron2 branches — Tacotron v1 comes in a later slice)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Any, Dict
 
 def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
     name = c["model"].lower()
+    audio = c.get("audio", {})
     if name == "glow_tts":
         if num_speakers > 1:
             raise NotImplementedError(
@@ -16,7 +17,6 @@ def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
             raise NotImplementedError(
                 "only the transformer Glow-TTS encoder is ported")
         from tts_tpu_torch.models.glow_tts import GlowTTS
-        audio = c.get("audio", {})
         # hard-coded hyperparameters as in tts_tpu (and the reference's
         # setup_model); the dropout rates are tts_tpu's GlowTTS defaults,
         # which its trainer trains with (active only in train() mode)
@@ -29,4 +29,41 @@ def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
             dropout_rate=0.1,
             dropout_rate_dec=0.05,
         )
+    if name == "tacotron2":
+        if num_speakers > 1:
+            raise NotImplementedError(
+                "multi-speaker Tacotron2 is not ported yet")
+        if c.get("use_gst", False):
+            raise NotImplementedError("Tacotron2 with GST is not ported yet")
+        from tts_tpu_torch.models.tacotron2 import Tacotron2
+        # r_init covers the largest r of the gradual-training schedule: the
+        # decoder's projection and stopnet are sized by it, so a checkpoint
+        # trained with gradual r loads into a model built from the config
+        gradual = c.get("gradual_training") or []
+        r = c.get("r", 7)
+        return Tacotron2(
+            num_chars=num_chars,
+            n_mels=audio.get("num_mels", 80),
+            r=r,
+            r_init=max([r] + [e[1] for e in gradual]),
+            encoder_dim=c.get("encoder_dim", 512),
+            embedding_dim=c.get("embedding_dim", 512),
+            prenet_type=c.get("prenet_type", "original"),
+            prenet_dropout=c.get("prenet_dropout", True),
+            attn_type=c.get("attention_type", "original"),
+            attn_dim=c.get("attn_dim", 128),
+            location_attn=c.get("location_attn", True),
+            use_forward_attn=c.get("use_forward_attn", False),
+            use_transition_agent=c.get("transition_agent", False),
+            forward_attn_mask=c.get("forward_attn_mask", False),
+            attn_norm=c.get("attention_norm", "softmax"),
+            windowing=c.get("windowing", False),
+            bidirectional_decoder=c.get("bidirectional_decoder", False),
+            double_decoder_consistency=c.get("double_decoder_consistency",
+                                             False),
+            ddc_r=c.get("ddc_r", 6),
+            max_decoder_steps=c.get("max_decoder_steps", 1000),
+        )
+    if name == "tacotron":
+        raise NotImplementedError("Tacotron (v1) is not ported yet")
     raise KeyError(f"unknown or not yet ported model: {name}")

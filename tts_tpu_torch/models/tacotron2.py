@@ -1,0 +1,215 @@
+"""Tacotron2 at eval: conv + BiLSTM encoder, autoregressive decoder with
+location-sensitive attention, postnet (≙ tts_tpu/models/tacotron2.py:
+``DecoderCell``, ``Tacotron2._encode``, ``_init_carry``, ``inference``), with
+Mozilla TTS's module names.
+
+``inference`` is the plain path: a Python loop over a static step budget,
+as tts_tpu's scan (no early exit). As there, an item stays active until the
+step after its first stop logit above ``stop_threshold``: frames after it
+are masked, and ``mel_lengths`` counts the active steps times r. The
+serving fast path for the configuration it supports is
+``infer/fast_decode.py::taco2_fused_inference`` (the B7 and B8 kernels).
+
+The coarse decoder of double decoder consistency and the backward decoder
+are built so that their checkpoints load; inference never runs them, as in
+tts_tpu. Not ported yet: the teacher-forced forward and training, GST,
+multi-speaker conditioning and streaming (``inference_truncated``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from tts_tpu_torch.models.layers import Encoder, Linear, Postnet, Prenet
+from tts_tpu_torch.ops.attention import init_attn
+from tts_tpu_torch.ops.masking import sequence_mask
+
+Carry = Dict[str, object]
+
+
+class Decoder(nn.Module):
+    """One decoder step: prenet -> attention LSTM -> attention -> decoder
+    LSTM -> frame projection and stop logit (≙ DecoderCell), at eval (the
+    query and decoder dropouts of training are not ported). The projection
+    is sized by ``r_init`` and cut to the active ``r``; the stopnet sees all
+    ``r_init`` frames."""
+
+    def __init__(self, in_features: int, n_mels: int = 80, r: int = 7,
+                 r_init: int = 0, query_dim: int = 1024,
+                 decoder_rnn_dim: int = 1024, prenet_type: str = "original",
+                 prenet_dropout: bool = True, attn_type: str = "original",
+                 attn_dim: int = 128, location_attn: bool = True,
+                 use_forward_attn: bool = False,
+                 use_transition_agent: bool = False,
+                 forward_attn_mask: bool = False, attn_norm: str = "softmax",
+                 windowing: bool = False):
+        super().__init__()
+        self.n_mels = n_mels
+        self.r = r
+        self.r_init = max(r_init, r)
+        self.query_dim = query_dim
+        self.decoder_rnn_dim = decoder_rnn_dim
+        self.prenet = Prenet(n_mels, prenet_type, prenet_dropout, bias=False)
+        self.attention_rnn = nn.LSTMCell(256 + in_features, query_dim)
+        self.attention = init_attn(
+            attn_type, query_dim=query_dim, embedding_dim=in_features,
+            attn_dim=attn_dim, location_attention=location_attn,
+            use_forward_attn=use_forward_attn,
+            use_transition_agent=use_transition_agent,
+            forward_attn_mask=forward_attn_mask, norm=attn_norm,
+            windowing=windowing)
+        self.decoder_rnn = nn.LSTMCell(query_dim + in_features,
+                                       decoder_rnn_dim)
+        self.linear_projection = Linear(decoder_rnn_dim + in_features,
+                                        self.r_init * n_mels)
+        self.stopnet = nn.Sequential(
+            nn.Dropout(0.1),
+            Linear(decoder_rnn_dim + self.r_init * n_mels, 1))
+
+    def init_carry(self, enc: torch.Tensor, mask: torch.Tensor) -> Carry:
+        B, T, D = enc.shape
+        zeros_q = enc.new_zeros(B, self.query_dim)
+        zeros_d = enc.new_zeros(B, self.decoder_rnn_dim)
+        return {"inputs": enc,
+                "processed_inputs": self.attention.preprocess_inputs(enc),
+                "mask": mask,
+                "attn_rnn": (zeros_q, zeros_q),
+                "dec_rnn": (zeros_d, zeros_d),
+                "attn_state": self.attention.init_state(B, T, enc.device),
+                "context": enc.new_zeros(B, D)}
+
+    def forward(self, carry: Carry, memory: torch.Tensor,
+                use_windowing: bool = False
+                ) -> Tuple[Carry, Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]]:
+        """One step from the previous frame ``memory`` (B, n_mels) ->
+        (new carry, (frames (B, r * n_mels), stop logit (B,), alignment
+        (B, T)))."""
+        x = torch.cat([self.prenet(memory), carry["context"]], dim=-1)
+        query, attn_c = self.attention_rnn(x, carry["attn_rnn"])
+        context, attn_state = self.attention(
+            query, carry["inputs"], carry["processed_inputs"],
+            carry["attn_state"], carry["mask"], use_windowing=use_windowing)
+        dec_out, dec_c = self.decoder_rnn(
+            torch.cat([query, context], dim=-1), carry["dec_rnn"])
+        frames_full = self.linear_projection(
+            torch.cat([dec_out, context], dim=-1))
+        stop = self.stopnet(torch.cat([dec_out, frames_full], dim=-1))[:, 0]
+        new = dict(carry)
+        new.update(attn_rnn=(query, attn_c), dec_rnn=(dec_out, dec_c),
+                   attn_state=attn_state, context=context)
+        return new, (frames_full[:, :self.r * self.n_mels], stop,
+                     attn_state["attention_weights"])
+
+
+class Tacotron2(nn.Module):
+    """(≙ Tacotron2) for one speaker without GST."""
+
+    def __init__(self, num_chars: int = 200, n_mels: int = 80, r: int = 7,
+                 r_init: int = 0, encoder_dim: int = 512,
+                 embedding_dim: int = 512, prenet_type: str = "original",
+                 prenet_dropout: bool = True, attn_type: str = "original",
+                 attn_dim: int = 128, location_attn: bool = True,
+                 use_forward_attn: bool = False,
+                 use_transition_agent: bool = False,
+                 forward_attn_mask: bool = False, attn_norm: str = "softmax",
+                 windowing: bool = False, bidirectional_decoder: bool = False,
+                 double_decoder_consistency: bool = False, ddc_r: int = 6,
+                 max_decoder_steps: int = 1000,
+                 stop_threshold: float = 0.5):
+        super().__init__()
+        if embedding_dim != encoder_dim:
+            raise ValueError("the encoder keeps the embedding width: "
+                             f"embedding_dim {embedding_dim} != encoder_dim "
+                             f"{encoder_dim}")
+        self.n_mels = n_mels
+        self.max_decoder_steps = max_decoder_steps
+        self.stop_threshold = stop_threshold
+        self.embedding = nn.Embedding(num_chars, embedding_dim)
+        nn.init.normal_(self.embedding.weight, 0.0, 0.3)
+        self.encoder = Encoder(encoder_dim)
+        dec_kwargs = dict(
+            n_mels=n_mels, prenet_type=prenet_type,
+            prenet_dropout=prenet_dropout, attn_type=attn_type,
+            attn_dim=attn_dim, location_attn=location_attn,
+            use_forward_attn=use_forward_attn,
+            use_transition_agent=use_transition_agent,
+            forward_attn_mask=forward_attn_mask, attn_norm=attn_norm,
+            windowing=windowing)
+        self.decoder = Decoder(encoder_dim, r=r, r_init=r_init, **dec_kwargs)
+        if double_decoder_consistency:
+            self.coarse_decoder = Decoder(encoder_dim, r=ddc_r, **dec_kwargs)
+        if bidirectional_decoder:
+            self.backward_decoder = Decoder(encoder_dim, r=r, r_init=r_init,
+                                            **dec_kwargs)
+        self.postnet = Postnet(n_mels)
+
+    @property
+    def r(self) -> int:
+        return self.decoder.r
+
+    def set_r(self, r: int) -> None:
+        """Serve at reduction factor ``r`` (a checkpoint's trained r): the
+        projection keeps its ``r_init`` frames and is cut to ``r``."""
+        if not 1 <= r <= self.decoder.r_init:
+            raise ValueError(f"r {r} outside 1..r_init "
+                             f"{self.decoder.r_init}")
+        self.decoder.r = r
+
+    def encode(self, text: torch.Tensor, text_lengths: torch.Tensor,
+               mask_pads: bool = False, packed_lstm=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """text (B, T) ids -> (encoder outputs (B, T, C), mask (B, T)).
+        ``packed_lstm``: the encoder's ``packed_lstm()``, when kept."""
+        x = self.embedding(text).transpose(1, 2)
+        enc = self.encoder(x, text_lengths, mask_pads=mask_pads,
+                           packed=packed_lstm)
+        return enc, sequence_mask(text_lengths, enc.shape[1])
+
+    def finish(self, frames: torch.Tensor, stop_logits: torch.Tensor,
+               alignments: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """frames (B, steps * r, n_mels), stop logits (B, steps) and
+        alignments (B, steps, T) of a static step budget -> the inference
+        outputs: an item is active until the step after its first stop,
+        frames after it are zeroed, and the postnet runs on the rest."""
+        done = torch.sigmoid(stop_logits) > self.stop_threshold
+        active = (torch.cumsum(done.int(), dim=1) - done.int()) == 0
+        frame_mask = active.repeat_interleave(self.r, dim=1)[..., None]
+        frames = frames * frame_mask
+        post = frames + self.postnet(frames.transpose(1, 2)).transpose(1, 2)
+        return {"decoder_outputs": frames,
+                "postnet_outputs": post * frame_mask,
+                "alignments": alignments,
+                "stop_logits": stop_logits,
+                "mel_lengths": active.sum(dim=1, dtype=torch.int32) * self.r}
+
+    @torch.no_grad()
+    def inference(self, text: torch.Tensor,
+                  text_lengths: Optional[torch.Tensor] = None,
+                  max_decoder_steps: Optional[int] = None,
+                  use_windowing: bool = True) -> Dict[str, torch.Tensor]:
+        """Greedy decode over ``max_decoder_steps`` (the model's budget by
+        default) in plain PyTorch, one decoder step per loop turn."""
+        B = text.shape[0]
+        if text_lengths is None:
+            text_lengths = torch.full((B,), text.shape[1], dtype=torch.int32,
+                                      device=text.device)
+        steps = max_decoder_steps or self.max_decoder_steps
+        enc, mask = self.encode(text, text_lengths, mask_pads=True)
+        carry = self.decoder.init_carry(enc, mask)
+        memory = enc.new_zeros(B, self.n_mels)
+        frames, stops, aligns = [], [], []
+        for _ in range(steps):
+            carry, (fr, stop, align) = self.decoder(carry, memory,
+                                                    use_windowing)
+            memory = fr[:, -self.n_mels:]
+            frames.append(fr)
+            stops.append(stop)
+            aligns.append(align)
+        frames = torch.stack(frames, dim=1).reshape(B, steps * self.r,
+                                                    self.n_mels)
+        return self.finish(frames, torch.stack(stops, dim=1),
+                           torch.stack(aligns, dim=1))

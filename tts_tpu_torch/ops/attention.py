@@ -1,0 +1,174 @@
+"""Location-sensitive attention as a step function (≙ tts_tpu/ops/attention.py:
+``LocationSensitiveAttention``, ``init_attn``), with Mozilla TTS's module
+names (``query_layer``, ``inputs_layer``, ``v``, ``location_layer``,
+``ta``) so that a Mozilla state dict loads as it is.
+
+The state is a dict of tensors carried by the caller, as in tts_tpu:
+``attention_weights`` and ``attention_cum`` (B, T), and with forward
+attention ``alpha`` (B, T) and ``u`` (B, 1). Variants: softmax or sigmoid
+normalisation, eval-time windowing, forward attention with the optional
+transition agent and forward mask. ``GravesAttention`` is not ported yet.
+
+``v`` keeps Mozilla's bias; tts_tpu has none (``use_v_bias=False``), so a
+tts_tpu tree maps to a zero bias. Under softmax a bias is a constant shift
+and changes nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tts_tpu_torch.models.layers import Linear
+
+State = Dict[str, torch.Tensor]
+
+
+class LocationLayer(nn.Module):
+    """Conv (k=31, SAME, no bias) over [previous alignment, cumulative
+    alignment], then a dense layer to the attention dim (no bias)."""
+
+    def __init__(self, attn_dim: int, filters: int = 32,
+                 kernel_size: int = 31):
+        super().__init__()
+        self.location_conv1d = nn.Conv1d(2, filters, kernel_size,
+                                         padding=(kernel_size - 1) // 2,
+                                         bias=False)
+        self.location_dense = Linear(filters, attn_dim, bias=False)
+
+    def forward(self, attn_cat: torch.Tensor) -> torch.Tensor:
+        """(B, 2, T) -> (B, T, attn_dim)."""
+        return self.location_dense(self.location_conv1d(attn_cat)
+                                   .transpose(1, 2))
+
+
+class LocationSensitiveAttention(nn.Module):
+    def __init__(self, query_dim: int, embedding_dim: int,
+                 attn_dim: int = 128, location_filters: int = 32,
+                 location_kernel_size: int = 31, use_location: bool = True,
+                 use_forward_attn: bool = False,
+                 use_transition_agent: bool = False,
+                 forward_attn_mask: bool = False, norm: str = "softmax",
+                 windowing: bool = False, win_back: int = 2,
+                 win_front: int = 6):
+        super().__init__()
+        if norm not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown attention norm: {norm}")
+        self.query_layer = Linear(query_dim, attn_dim, bias=False)
+        self.inputs_layer = Linear(embedding_dim, attn_dim, bias=False)
+        self.v = Linear(attn_dim, 1, bias=True)
+        self.use_location = use_location
+        if use_location:
+            self.location_layer = LocationLayer(attn_dim, location_filters,
+                                                location_kernel_size)
+        self.use_transition_agent = use_transition_agent
+        if use_transition_agent:
+            self.ta = nn.Linear(embedding_dim + query_dim, 1, bias=True)
+        self.use_forward_attn = use_forward_attn
+        self.forward_attn_mask = forward_attn_mask
+        self.norm = norm
+        self.windowing = windowing
+        self.win_back = win_back
+        self.win_front = win_front
+
+    def init_state(self, batch: int, t_in: int, device) -> State:
+        """Zero alignments; forward attention's alpha starts as a delta at
+        position 0 with a 1e-7 tail, u at 0.5."""
+        state = {"attention_weights": torch.zeros(batch, t_in, device=device),
+                 "attention_cum": torch.zeros(batch, t_in, device=device)}
+        if self.use_forward_attn:
+            alpha = torch.full((batch, t_in), 1e-7, device=device)
+            alpha[:, 0] = 1.0
+            state["alpha"] = alpha
+            state["u"] = torch.full((batch, 1), 0.5, device=device)
+        return state
+
+    def preprocess_inputs(self, inputs: torch.Tensor) -> torch.Tensor:
+        return self.inputs_layer(inputs)
+
+    def energies(self, query: torch.Tensor, processed_inputs: torch.Tensor,
+                 state: State) -> torch.Tensor:
+        """(B, D_q), (B, T, A) -> (B, T) unnormalised energies."""
+        x = self.query_layer(query)[:, None, :] + processed_inputs
+        if self.use_location:
+            attn_cat = torch.stack([state["attention_weights"],
+                                    state["attention_cum"]], dim=1)
+            x = x + self.location_layer(attn_cat)
+        return self.v(torch.tanh(x))[..., 0]
+
+    def _apply_windowing(self, energies: torch.Tensor, state: State
+                         ) -> torch.Tensor:
+        """-inf outside [argmax - win_back, argmax + win_front] of the
+        previous alignment."""
+        center = torch.argmax(state["attention_weights"], dim=-1,
+                              keepdim=True)
+        pos = torch.arange(energies.shape[-1], device=energies.device)[None]
+        keep = (pos >= center - self.win_back) & (pos <= center
+                                                  + self.win_front)
+        return energies.masked_fill(~keep, float("-inf"))
+
+    def _forward_attention(self, alignment: torch.Tensor, state: State
+                           ) -> torch.Tensor:
+        alpha = state["alpha"]
+        u = state["u"] if self.use_transition_agent else 0.5
+        shifted = F.pad(alpha, (1, 0))[:, :-1]
+        alpha_new = ((1.0 - u) * alpha + u * shifted + 1e-8) * alignment
+        if self.forward_attn_mask:
+            fwd_shifted = F.pad(alpha, (0, 1))[:, 1:]
+            peak = torch.argmax(torch.maximum(fwd_shifted, alpha), dim=-1,
+                                keepdim=True)
+            pos = torch.arange(alpha.shape[-1], device=alpha.device)[None]
+            keep = (pos <= peak + 1).to(alpha.dtype)
+            alpha_new = alpha_new * keep + 1e-7 * (1.0 - keep)
+        return alpha_new / (alpha_new.sum(dim=-1, keepdim=True) + 1e-8)
+
+    def forward(self, query: torch.Tensor, inputs: torch.Tensor,
+                processed_inputs: torch.Tensor, state: State,
+                mask: Optional[torch.Tensor] = None,
+                use_windowing: bool = False
+                ) -> Tuple[torch.Tensor, State]:
+        """One step: (context (B, D), new state)."""
+        energies = self.energies(query, processed_inputs, state)
+        if use_windowing and self.windowing:
+            energies = self._apply_windowing(energies, state)
+        if mask is not None:
+            energies = energies.masked_fill(~mask, -1e9)
+        energies = energies.float()
+        if self.norm == "softmax":
+            alignment = torch.softmax(energies, dim=-1)
+        else:
+            sig = torch.sigmoid(energies)
+            alignment = sig / (sig.sum(dim=-1, keepdim=True) + 1e-8)
+        new_state = dict(state)
+        # the location statistics take the alignment before forward
+        # attention
+        new_state["attention_cum"] = state["attention_cum"] + alignment
+        if self.use_forward_attn:
+            alignment = self._forward_attention(alignment, state)
+            new_state["alpha"] = alignment
+        new_state["attention_weights"] = alignment
+        context = torch.einsum("bt,btd->bd", alignment.to(inputs.dtype),
+                               inputs)
+        if self.use_transition_agent:
+            new_state["u"] = torch.sigmoid(
+                self.ta(torch.cat([context, query], dim=-1)))
+        return context, new_state
+
+
+def init_attn(attn_type: str, *, query_dim: int, embedding_dim: int,
+              attn_dim: int = 128, location_attention: bool = True,
+              use_forward_attn: bool = False,
+              use_transition_agent: bool = False,
+              forward_attn_mask: bool = False, norm: str = "softmax",
+              windowing: bool = False) -> LocationSensitiveAttention:
+    """Attention factory (≙ init_attn); "graves" is not ported yet."""
+    if attn_type != "original":
+        raise NotImplementedError(f"{attn_type} attention is not ported yet")
+    return LocationSensitiveAttention(
+        query_dim, embedding_dim, attn_dim=attn_dim,
+        use_location=location_attention, use_forward_attn=use_forward_attn,
+        use_transition_agent=use_transition_agent,
+        forward_attn_mask=forward_attn_mask, norm=norm, windowing=windowing)

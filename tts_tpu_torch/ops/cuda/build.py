@@ -10,7 +10,8 @@ Libraries are loaded with ``ctypes``; pointers and the stream pass as
 ``c_void_p``.
 
 ``LAUNCHES`` counts, per kernel name, the launches that the wrappers made:
-each wrapper adds one where it launches its kernel and nowhere else.
+each wrapper adds one where it launches its kernel and nowhere else (a C
+entry point that loops over steps adds the number of kernels it launched).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Dict, Iterable, Optional
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parents[2] / "build" / "tts_tpu_torch_kernels"
 SOURCES = ("fused_resstack", "fused_melgan", "mas", "stft_mag",
-           "grouped_conv_grad")
+           "grouped_conv_grad", "bilstm", "taco2_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -108,13 +109,14 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, kernel: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error; else count the launch."""
+def check(lib: ctypes.CDLL, kernel: str, err: int, launches: int = 1) -> None:
+    """Raise if a launch returned a CUDA error; else count ``launches``
+    launches."""
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg}")
     with _count_lock:
-        LAUNCHES[kernel] += 1
+        LAUNCHES[kernel] += launches
 
 
 def stream_handle(device) -> ctypes.c_void_p:
