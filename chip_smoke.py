@@ -79,11 +79,28 @@ Phases, in order; any failure exits non-zero with its traceback:
 11. taco2 batched: bench.py's taco2 pipeline (batch 64, 128 symbols, 124
    steps at r = 2, then the generator on 248 frames): audio-seconds per
    second and the split into encoder, decode, postnet and vocoder.
+12. glow encoder kernel: the whole eval-mode Glow encoder kernel (B3) at
+   full width (configs/glow_tts_ljspeech.json through the registry, every
+   parameter refilled from the seed) against its plain version at bench.py's
+   batch (128 x 128 symbols), the serving bucket (1 x 96, length 80) and a
+   ragged batch (16 x 192, lengths 40-192): within 1e-4 of the largest plain
+   magnitude, padded rows exactly 0, the launches of one call as derived;
+   times, the bound and torch.profiler's device time by kernel function.
+13. cli: `tts_tpu_torch.bin.synthesize` in-process on phase 3's full-width
+   checkpoints, with the Multiband-MelGAN vocoder and without it
+   (Griffin-Lim, one short sentence): WAVs of the expected length, finite
+   and not silent; B3 launches one call per sentence in both runs, B1/B2
+   only in the vocoder run; the vocoder run's audio equals the same call on
+   the CPU within 1e-3.
+
+Phases 3 and 4 run Glow's encoder through B3 too: phase 3 asserts its
+launches (one call per sentence), phase 4 prints its share of glow_ms.
 
 The second-last line is the kernels JSON; the last is the ok line.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -161,7 +178,7 @@ def kernel_profile(fn) -> dict:
         if us is None:
             us = ev.cuda_time_total
         if us > 0:
-            name = re.search(r"(\w+(<\w+>)?)\(", ev.key)
+            name = re.search(r"(\w+(<[\w, ]+>)?)\(", ev.key)
             out[name.group(1) if name else ev.key[:60]] = {
                 "us": us, "launches": ev.count}
     return out
@@ -370,6 +387,15 @@ def build_models(root: str):
     return paths
 
 
+def encoder_launches(model, texts) -> int:
+    """B3 launches that serving `texts` makes: one fused encoder call per
+    sentence."""
+    from tts_tpu_torch.infer.synthesizer import split_into_sentences
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    calls = sum(len(split_into_sentences(t) or [t]) for t in texts)
+    return calls * GEK.launches_per_call(model.encoder.packed_weights().dims)
+
+
 def serving_phase(dev, root: str):
     from tts_tpu_torch.audio.processor import read_wav
     from tts_tpu_torch.config import load_config
@@ -378,6 +404,7 @@ def serving_phase(dev, root: str):
     from tts_tpu_torch.ops.cuda import build
     from tts_tpu_torch.ops.cuda import fused_melgan as M
     from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
     from tts_tpu_torch.server.server import create_server
 
     paths = build_models(root)
@@ -424,6 +451,10 @@ def serving_phase(dev, root: str):
     log({"main_path_launches": launches, "requests": len(texts)})
     for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
         assert launches.get(name, 0) > 0, f"{name} was not launched"
+    # B3: one fused encoder call per sentence, none of the plain version
+    want = encoder_launches(synth.model, texts)
+    assert launches.get(GEK.KERNEL, 0) == want, (launches.get(GEK.KERNEL),
+                                                 want)
 
     # the same request on the CPU (plain versions) as the reference, through
     # the same 16-bit WAV encoding (1 LSB = 3.1e-5)
@@ -461,7 +492,9 @@ def batched_phase(dev, card: str):
     from tts_tpu_torch.models.registry import setup_model
     from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
     from tts_tpu_torch.models.vocoder.registry import setup_generator
+    from tts_tpu_torch.ops.cuda import build
     from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
 
     here = os.path.dirname(os.path.abspath(__file__))
     torch.manual_seed(SEED)
@@ -492,6 +525,20 @@ def batched_phase(dev, card: str):
     torch.cuda.reset_peak_memory_stats()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     times, split = [], []
+    # the encoder's share of glow_ms: events around the encoder call that
+    # inference makes (B3)
+    enc_events = []
+    encode = glow.encode
+
+    def timed_encode(*args):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = encode(*args)
+        pair[1].record()
+        enc_events.append(pair)
+        return out
+    glow.encode = timed_encode
+    build.reset_launches()
     for _ in range(3):
         t0 = time.perf_counter()
         ev[0].record()
@@ -504,6 +551,9 @@ def batched_phase(dev, card: str):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    del glow.encode
+    assert build.LAUNCHES[GEK.KERNEL] == 3 * GEK.launches_per_call(
+        glow.encoder.packed_weights().dims), dict(build.LAUNCHES)
     times.sort()
     dt = times[1]
     audio_s = batch * MEL_FRAMES * 256 / 22050
@@ -511,7 +561,9 @@ def batched_phase(dev, card: str):
          "mel_frames": MEL_FRAMES, "s_per_batch": dt,
          "audio_s_per_s": audio_s / dt, "spread_pct":
          100 * (times[-1] - times[0]) / dt,
-         "glow_ms": [s[0] for s in split], "vocoder_ms": [s[1] for s in split],
+         "glow_ms": [s[0] for s in split],
+         "encoder_ms_of_glow": [a.elapsed_time(b) for a, b in enc_events],
+         "vocoder_ms": [s[1] for s in split],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
          "card": card})
 
@@ -1442,6 +1494,176 @@ def taco2_batched_phase(dev, card: str):
          "card": card})
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the fused Glow encoder (B3)
+# ---------------------------------------------------------------------------
+
+# (B, T, lengths): bench.py's batched geometry, the serving bucket of an
+# 80-symbol sentence, and a ragged batch
+GLOW_ENC_GEOMETRIES = ((128, 128, "all"), (1, 96, (80,)), (16, 192, (40, 192)))
+
+
+def seed_encoder(enc, seed: int):
+    """Refill every parameter of a port GlowTTSEncoder from the seed:
+    fan-in scaled weights, LayerNorm scales near 1, small biases. Nothing
+    stays zero, so the prenet's zero-initialised projection (and the LN
+    scales' 0.1) cannot hide a wrong prenet."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith("gamma"):
+                v = 1.0 + 0.1 * torch.randn(p.shape, generator=g)
+            elif p.dim() == 1:
+                v = 0.05 * torch.randn(p.shape, generator=g)
+            else:
+                fan_in = p.shape[-1] if "emb_rel" in name else p[0].numel()
+                v = torch.randn(p.shape, generator=g) / fan_in ** 0.5
+            p.copy_(v)
+    return enc
+
+
+def glow_encoder_flops(d, lengths) -> float:
+    """fp32 FLOPs of the encoder on the valid rows (and, in attention, the
+    valid query-key pairs) of items of `lengths`: prenet convs and
+    projection; per layer q|k|v, scores, band logits, softmax-weighted
+    values and the value band, output projection, the two FFN convs; the
+    mean projection; the duration predictor."""
+    C, kc = d.hidden, d.hidden // d.heads
+    rows = float(sum(lengths))
+    pairs = float(sum(n * n for n in lengths))
+    per_row = (d.n_pre * d.k_pre * C * C + C * C
+               + d.layers * (3 * C * C + C * C + 2 * d.k_ffn * C * d.filt
+                             + 2 * 9 * C)
+               + C * d.n_out + d.k_dp * C * d.filt_dp
+               + d.k_dp * d.filt_dp * d.filt_dp + d.filt_dp)
+    return 2.0 * (rows * per_row + d.layers * pairs * 2 * C)
+
+
+def glow_encoder_kernel_phase(dev):
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.ops import glow_encoder as GE
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    from tts_tpu_torch.text import num_symbols
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    c = load_config(os.path.join(here, "configs", "glow_tts_ljspeech.json"))
+    torch.manual_seed(SEED)
+    enc = setup_model(num_symbols(c.get("use_phonemes", False)), 1, c).encoder
+    enc = seed_encoder(enc, SEED).to(dev).eval()
+    assert GE.supports_fused_encoder(enc)
+    packed = enc.packed_weights()
+    d = packed.dims
+    g = torch.Generator(dev).manual_seed(2)
+    res = {}
+    for B, T, lens in GLOW_ENC_GEOMETRIES:
+        if lens == "all":
+            lengths = torch.full((B,), T, device=dev)
+        elif len(lens) == 1:
+            lengths = torch.full((B,), lens[0], device=dev)
+        else:
+            lengths = torch.randint(lens[0], lens[1] + 1, (B,), device=dev,
+                                    generator=g)
+            lengths[0] = T
+        text = torch.randint(1, enc.emb.num_embeddings, (B, T), device=dev,
+                             generator=g)
+        with torch.no_grad():
+            emb = (enc.emb(text) * math.sqrt(d.hidden)).contiguous()
+        mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
+        before = build.LAUNCHES[GEK.KERNEL]
+        got = GEK.glow_encoder_cuda(packed.flat, d, emb, mask)
+        launches = build.LAUNCHES[GEK.KERNEL] - before
+        want = GE.glow_encoder_torch(packed, emb, mask)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), "non-finite encoder output"
+        err = check_close(f"{GEK.KERNEL} B={B} T={T}", got, want)
+        assert not got[mask == 0].any(), "padded rows must be exactly 0"
+        assert launches == GEK.launches_per_call(d), launches
+        ms = cuda_time_ms(lambda: GEK.glow_encoder_cuda(packed.flat, d, emb,
+                                                        mask), 10)
+        plain_ms = cuda_time_ms(lambda: GE.glow_encoder_torch(packed, emb,
+                                                              mask), 3)
+        flops = glow_encoder_flops(d, lengths.tolist())
+        bound = bound_ms(nbytes(emb, mask, packed.flat, got), flops)
+        log({"kernel": GEK.KERNEL, "shapes": f"B={B}, T={T}",
+             "lengths": [int(lengths.min()), int(lengths.max())],
+             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+             "bound_ms": bound[0], "bound_by": bound[1], "gflop": flops / 1e9,
+             "weights_mb": nbytes(packed.flat) / 1e6, "max_abs_err": err,
+             "max_abs_plain": float(want.abs().max()),
+             "launches_per_call": launches,
+             "profile_us": kernel_profile(lambda: GEK.glow_encoder_cuda(
+                 packed.flat, d, emb, mask))})
+        if (B, T) == GLOW_ENC_GEOMETRIES[0][:2]:
+            res = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                       library_ms=None)
+        else:
+            res["err"] = max(res["err"], err)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the synthesis CLI
+# ---------------------------------------------------------------------------
+
+def cli_phase(dev, root: str):
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.bin.synthesize import main as synthesize
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import text_to_seqvec
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+
+    paths = build_models(root)
+    cfg = load_config(paths["tts_config"])
+    hop = cfg["audio"]["hop_length"]
+    per_call = encoder_launches(Synthesizer(paths["tts"], paths["tts_config"],
+                                            device=dev).model, ["x"])
+    vocoder = ["--vocoder_path", paths["voc"],
+               "--vocoder_config_path", paths["vocoder_config"]]
+    runs = (("vocoder", "The birch canoe slid on the smooth planks.", vocoder),
+            ("griffin_lim", "Hello world!", []))
+    wavs = {}
+    for name, text, extra in runs:
+        frames = -(-6 * len(text_to_seqvec(text, cfg)) // 2) * 2
+        if extra:   # the vocoder's mel bucket cut (serving_phase's rule)
+            expect = frames * hop if frames % 32 else (frames + 4) * hop
+        else:       # Griffin-Lim's inverse STFT of `frames` frames
+            expect = (frames - 1) * hop
+        build.reset_launches()
+        t0 = time.perf_counter()
+        path = synthesize([text, paths["tts_config"], paths["tts"],
+                           os.path.join(root, "cli_" + name), *extra])
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        wav, sr = read_wav(path)
+        assert sr == cfg["audio"]["sample_rate"]
+        assert len(wav) == expect + 10000, (name, len(wav), expect + 10000)
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+        assert launches.get(GEK.KERNEL, 0) == per_call, launches
+        for kernel in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+            assert (launches.get(kernel, 0) > 0) == bool(extra), (name,
+                                                                  launches)
+        wavs[name] = wav
+        log({"cli": name, "file": os.path.basename(path),
+             "samples": len(wav), "seconds_with_load": seconds,
+             "launches": launches})
+
+    # the vocoder run on the CPU (plain versions) as the reference
+    cpu_path = synthesize([runs[0][1], paths["tts_config"], paths["tts"],
+                           os.path.join(root, "cli_cpu"), *vocoder,
+                           "--device", "cpu"])
+    ref, _ = read_wav(cpu_path)
+    assert len(ref) == len(wavs["vocoder"])
+    err = float(np.abs(ref - wavs["vocoder"]).max())
+    log({"cli_vocoder_vs_cpu_max_abs_err": err})
+    assert err < 1e-3, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1480,6 +1702,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         taco_launches = taco2_serving_phase(dev, root)
     taco2_batched_phase(dev, card)
+    glow_enc = glow_encoder_kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as root:
+        cli_phase(dev, root)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",
@@ -1538,6 +1763,15 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1],
                         "library_ms": r["library_ms"]})
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    kernels.append({"name": GEK.KERNEL, "route": "cuda",
+                    "source": "tts_tpu_torch/ops/cuda/glow_encoder.cu",
+                    "replaces": "tts_tpu/ops/pallas/fused_glow_encoder.py:293",
+                    "launches": launches[GEK.KERNEL],
+                    "max_abs_err": glow_enc["err"], "ms": glow_enc["ms"],
+                    "plain_ms": glow_enc["plain_ms"],
+                    "bound_ms": glow_enc["bound"][0],
+                    "bound_by": glow_enc["bound"][1], "library_ms": None})
     log(card)  # as nvidia-smi prints it: name, power limit
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ Tolerance: 1e-4 of the largest reference magnitude (float32; TF32 is off for
 the plain versions' cuDNN convs and matmuls), the STFT magnitude and the
 grouped conv's weight gradient included (sums of up to 2048 and B x L_out
 products in another order), and so are the encoder BiLSTM and the Tacotron2
-decode (each output over all steps); the grouped conv's input gradient
+decode (each output over all steps), and the Glow encoder (B3, every output
+of 2-6 layers); the grouped conv's input gradient
 within 1e-5 absolute (about 44 products of unit-scale values); the
 alignment path (0/1) exactly.
 """
@@ -361,3 +362,108 @@ def test_taco2_wrappers_refuse_bf16_and_never_fall_back(cuda, monkeypatch):
                         compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         TD.fused_decode(enc, pi.cpu(), mask, packed, 2, 2)
+
+
+# ---------------------------------------------------------------------------
+# Glow-TTS: the whole eval-mode encoder (B3)
+# ---------------------------------------------------------------------------
+
+def _seeded_encoder(hidden, heads, filt, filt_dp, layers, seed):
+    """A port GlowTTSEncoder with every parameter drawn from the seed:
+    fan-in scaled weights, LayerNorm scales near 1, small biases. Nothing is
+    zero, so the prenet's zero-initialised projection cannot hide a wrong
+    prenet."""
+    from tts_tpu_torch.models.glow.encoder import GlowTTSEncoder
+    enc = GlowTTSEncoder(num_chars=60, hidden_channels=hidden,
+                         filter_channels=filt, filter_channels_dp=filt_dp,
+                         num_heads=heads, num_layers=layers).eval()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith("gamma"):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g))
+            elif p.dim() == 1:
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+            else:
+                fan_in = p[0].numel() if "emb_rel" not in name \
+                    else p.shape[-1]
+                p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
+    return enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,heads,filt,filt_dp,layers,B,T", [
+    (32, 2, 64, 48, 2, 4, 32),        # the CPU tests' width, k_ch 16
+    (16, 2, 64, 48, 2, 3, 37),        # k_ch 8, T no multiple of a tile
+    (192, 2, 768, 256, 6, 2, 96),     # the shipped width, k_ch 96
+    (192, 2, 768, 256, 2, 3, 512),    # the largest text bucket
+    (192, 2, 768, 256, 2, 16, 32),
+    (192, 2, 768, 256, 1, 64, 160)])    # 64-row tiles fill the card
+def test_glow_encoder_kernel_matches_plain(cuda, hidden, heads, filt,
+                                           filt_dp, layers, B, T):
+    """Ragged lengths (one item full, one of length 1); padded rows of the
+    output exactly 0; the launches of one call as derived."""
+    from tts_tpu_torch.ops import glow_encoder as GE
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    enc = _seeded_encoder(hidden, heads, filt, filt_dp, layers, seed=T)
+    packed = GE.pack_glow_encoder_params(enc)
+    g = torch.Generator().manual_seed(T + 1)
+    emb = torch.randn(B, T, hidden, generator=g)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    lengths[0], lengths[-1] = T, 1
+    mask = (torch.arange(T)[None] < lengths[:, None]).float()
+    packed_c = GE.PackedGlowEncoder(packed.flat.to(cuda), packed.dims)
+    want = GE.glow_encoder_torch(packed_c, emb.to(cuda), mask.to(cuda))
+    before = build.LAUNCHES[GEK.KERNEL]
+    got = GEK.glow_encoder_cuda(packed_c.flat, packed.dims, emb.to(cuda),
+                                mask.to(cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GEK.KERNEL] - before == \
+        GEK.launches_per_call(packed.dims) == 3 + 1 + 5 * layers + 4
+    assert torch.isfinite(got).all()
+    _close(got, want)
+    _close(got, GE.glow_encoder_torch(packed, emb, mask))   # the CPU's
+    assert not got[mask.to(cuda) == 0].any(), "padded rows must be 0"
+
+
+@pytest.mark.cuda
+def test_glow_inference_reaches_the_kernel(cuda, monkeypatch):
+    """GlowTTS.inference in eval on the card runs B3, never the plain
+    version, and matches the same model on the CPU; tensors that need a
+    gradient are refused."""
+    from tts_tpu_torch.models.glow_tts import GlowTTS
+    from tts_tpu_torch.ops import glow_encoder as GE
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    torch.manual_seed(0)
+    model = GlowTTS(num_chars=60, hidden_channels_enc=32,
+                    hidden_channels_dec=32, filter_channels=64,
+                    filter_channels_dp=48, num_layers_enc=2,
+                    num_flow_blocks_dec=2, num_block_layers=2).eval()
+    model.encoder.load_state_dict(
+        _seeded_encoder(32, 2, 64, 48, 2, seed=3).state_dict())
+    with torch.no_grad():     # pin the durations (ceil flips on an ulp)
+        model.encoder.duration_predictor.proj.weight.zero_()
+        model.encoder.duration_predictor.proj.bias.fill_(1.5)
+    text = torch.randint(1, 60, (2, 21), generator=torch.Generator()
+                         .manual_seed(4))
+    lengths = torch.tensor([21, 13])
+    want = model.inference(text, lengths, noise_scale=0.0, y_max_length=96)
+    model.to(cuda)
+    model.store_inverse()
+
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(GE, "glow_encoder_torch", boom)
+    before = build.LAUNCHES[GEK.KERNEL]
+    got = model.inference(text.to(cuda), lengths.to(cuda), noise_scale=0.0,
+                          y_max_length=96)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GEK.KERNEL] - before == 3 + 1 + 5 * 2 + 4
+    assert torch.equal(got["mel_lengths"].cpu(), want["mel_lengths"])
+    for key in ("model_outputs", "durations_log"):
+        _close(got[key], want[key])
+    emb = torch.randn(1, 8, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        GEK.glow_encoder_cuda(model.encoder.packed_weights().flat,
+                              model.encoder.packed_weights().dims, emb,
+                              torch.ones(1, 8, device=cuda))

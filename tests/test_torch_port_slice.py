@@ -144,7 +144,7 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_flax_or_tts_tpu():
-    banned = ("jax", "jaxlib", "flax", "optax", "tts_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "msgpack", "tts_tpu")
     offenders = []
     files = _port_sources()
     assert len(files) > 20

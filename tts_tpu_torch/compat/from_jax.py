@@ -20,7 +20,9 @@ only (and trees without weight norm leaf by leaf);
 ``tacotron2_state_dict_from_jax`` packs the per-gate LSTM kernels and adds
 the zero biases tts_tpu leaves out, so it maps params only. The other
 direction, port -> tts_tpu, is ``tts_tpu/compat/torch_port.py`` in the JAX
-package.
+package. ``state_dict_from_tts_tpu`` picks the converter for a whole
+tts_tpu checkpoint (``train/checkpoint.py::load_tts_tpu_checkpoint``) from
+its config.
 """
 
 from __future__ import annotations
@@ -340,3 +342,27 @@ def tacotron2_state_dict_from_jax(params: Tree, batch_stats: Tree
             out[key[:-len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return out
+
+
+def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """A tts_tpu checkpoint ({"params", "batch_stats", "meta"}) -> the port
+    model's state dict, by the config's model: a vocoder config
+    (``generator_model``, the MelGAN family) through
+    ``melgan_state_dict_from_jax`` with its upsample factors and residual
+    stacks; a TTS config's ``glow_tts`` or ``tacotron2`` through their
+    converters (Tacotron2 with the checkpoint's ``batch_stats``)."""
+    params = ckpt["params"]
+    if "generator_model" in c:
+        from tts_tpu_torch.models.vocoder.registry import setup_generator
+        gen = setup_generator(c, use_weight_norm=False)
+        return melgan_state_dict_from_jax(params, gen.upsample_factors,
+                                          gen.num_res_blocks)
+    name = c.get("model", "").lower()
+    if name == "glow_tts":
+        return glow_tts_state_dict_from_jax(params)
+    if name == "tacotron2":
+        return tacotron2_state_dict_from_jax(params,
+                                             ckpt.get("batch_stats") or {})
+    raise NotImplementedError(f"no tts_tpu checkpoint converter for model "
+                              f"{name!r}")

@@ -1,7 +1,10 @@
-"""End-to-end synthesis helper: text -> id sequence -> model -> mel
-(≙ tts_tpu/infer/synthesis.py: ``text_to_seqvec``, ``bucket_text_length``,
-the Glow-TTS and Tacotron2 branches of ``run_model``, and ``synthesis``).
-PyTorch runs eagerly, so there is no compiled-function cache."""
+"""End-to-end synthesis helper: text -> id sequence -> model -> mel, and
+the waveform by Griffin-Lim when no vocoder is served (≙ tts_tpu/infer/
+synthesis.py: ``text_to_seqvec``, ``bucket_text_length``, the Glow-TTS and
+Tacotron2 branches of ``run_model``, ``inv_spectrogram``, ``trim_silence``
+and ``synthesis``). PyTorch runs eagerly, so there is no compiled-function
+cache. Griffin-Lim runs on the host in numpy (``AudioProcessor``), as in
+tts_tpu."""
 
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ def run_model(model, inputs: torch.Tensor, c: Dict,
     (the B7 and B8 kernels on the card), any other ``model.inference``; the
     choice depends on the configuration only. Both compute tts_tpu's
     ``Tacotron2.inference`` (``max_decoder_steps`` defaults to the model's
-    budget, with windowing where the configuration sets it)."""
+    budget, with windowing where the configuration sets it). Glow-TTS in
+    eval mode runs its encoder as the fused B3 call (``GlowTTS.encode``)."""
     model_name = c.get("model", "tacotron2").lower()
     if model_name == "tacotron2":
         from tts_tpu_torch.infer.fast_decode import (supports_fused_decode,
@@ -68,11 +72,29 @@ def run_model(model, inputs: torch.Tensor, c: Dict,
     return out
 
 
+def inv_spectrogram(postnet_output: np.ndarray, ap, c: Dict) -> np.ndarray:
+    """Griffin-Lim of a normalized mel (Tacotron2, Glow-TTS), or of a linear
+    spectrogram for Tacotron v1."""
+    if c.get("model", "tacotron2").lower() == "tacotron":
+        return ap.inv_spectrogram(postnet_output)
+    return ap.inv_melspectrogram(postnet_output)
+
+
+def trim_silence(wav: np.ndarray, ap) -> np.ndarray:
+    """Cut 10 ms from each end (tts_tpu's rule)."""
+    margin = int(ap.sample_rate * 0.01)
+    return wav[margin:-margin] if len(wav) > 2 * margin else wav
+
+
 def synthesis(model, text: str, c: Dict, device: torch.device, *,
               max_decoder_steps: Optional[int] = None, tp=None,
-              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+              generator: Optional[torch.Generator] = None, ap=None,
+              use_griffin_lim: bool = False,
+              do_trim_silence: bool = False) -> Dict[str, Any]:
     """Text -> normalized mel of the valid frames: 'postnet_outputs'
-    (T, n_mels) numpy, and 'alignments' (T_y, T_x)."""
+    (T, n_mels) numpy, and 'alignments' (T_y, T_x); with
+    ``use_griffin_lim`` also 'wav', Griffin-Lim through ``ap`` (trimmed by
+    10 ms at each end with ``do_trim_silence``)."""
     seq = text_to_seqvec(text, c, tp=tp)
     n = len(seq)
     text_lengths = None
@@ -88,5 +110,9 @@ def synthesis(model, text: str, c: Dict, device: torch.device, *,
     n_valid = int(out["mel_lengths"][0])
     if n_valid > 0:
         postnet = postnet[:n_valid]
-    return {"postnet_outputs": postnet,
-            "alignments": out["alignments"][0].cpu().numpy()}
+    result = {"postnet_outputs": postnet,
+              "alignments": out["alignments"][0].cpu().numpy()}
+    if use_griffin_lim:
+        wav = inv_spectrogram(postnet, ap, c)
+        result["wav"] = trim_silence(wav, ap) if do_trim_silence else wav
+    return result

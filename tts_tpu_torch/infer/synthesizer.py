@@ -1,28 +1,36 @@
-"""Synthesizer: checkpointed Glow-TTS or Tacotron2 + MelGAN-family vocoder,
-sentence-wise (≙ tts_tpu/infer/synthesizer.py for these models).
+"""Synthesizer: checkpointed Glow-TTS or Tacotron2 + an optional
+MelGAN-family vocoder, sentence-wise (≙ tts_tpu/infer/synthesizer.py for
+these models).
 
-Checkpoints are ``torch.save({"model": state_dict, ...})`` files; a Mozilla
-TTS state dict loads as it is, since the port keeps its key names, and a
-Tacotron2 checkpoint's ``"r"`` (a gradual-training run's r) is served. A
+Each checkpoint is either the port's ``torch.save({"model": state_dict,
+...})`` file (a Mozilla TTS state dict loads as it is, since the port keeps
+its key names) or a tts_tpu checkpoint (flax msgpack, read without flax and
+converted by ``compat/from_jax.py::state_dict_from_tts_tpu``); the format is
+told by the file's first bytes. A Tacotron2 checkpoint's r (``"r"``, or
+tts_tpu's ``meta["r"]``: a gradual-training run's r) is served. Without a
+vocoder the waveform is Griffin-Lim on the host, as in tts_tpu.
+
+Glow-TTS runs its encoder as one fused call (B3; packed once at load); a
 Tacotron2 whose configuration the fused decode supports runs the B7 and B8
-kernels on the card (``infer/synthesis.py::run_model``). On
-``cuda`` (the default) the vocoder always runs through the hand-written
-kernels: ``megakernel_inference`` when the upsample factors are even, else
-the per-stack path ``fused_inference``. On ``device="cpu"`` the same calls
-take their plain PyTorch versions.
+kernels on the card (``infer/synthesis.py::run_model``). On ``cuda`` (the
+default) the vocoder always runs through the hand-written kernels:
+``megakernel_inference`` when the upsample factors are even, else the
+per-stack path ``fused_inference``. On ``device="cpu"`` the same calls take
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import re
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from tts_tpu_torch import DeviceLike, resolve_device
 from tts_tpu_torch.audio import AudioProcessor
+from tts_tpu_torch.compat.from_jax import state_dict_from_tts_tpu
 from tts_tpu_torch.config import load_config
 from tts_tpu_torch.infer.synthesis import synthesis
 from tts_tpu_torch.models.glow_tts import GlowTTS
@@ -34,7 +42,10 @@ from tts_tpu_torch.models.vocoder.serving import fused_inference, pack_stacks
 from tts_tpu_torch.ops.cuda.fused_melgan import (megakernel_inference,
                                                  megakernel_supported,
                                                  pack_generator_params)
+from tts_tpu_torch.ops.glow_encoder import supports_fused_encoder
 from tts_tpu_torch.text import num_symbols
+from tts_tpu_torch.train.checkpoint import (is_torch_checkpoint,
+                                            load_tts_tpu_checkpoint)
 
 _SENTENCE_RE = re.compile(r"(?<=[.!?])\s+(?=[A-Z\"'(])|(?<=[.!?])$")
 
@@ -44,18 +55,21 @@ def split_into_sentences(text: str) -> List[str]:
     return [s for s in parts if s]
 
 
-def load_checkpoint(path: str) -> Dict:
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt if "model" in ckpt else {"model": ckpt}
-
-
-def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    return load_checkpoint(path)["model"]
+def load_checkpoint(path: str, c: Dict) -> Dict:
+    """{"model": the port's state dict[, "r": r]} from a torch checkpoint or
+    a tts_tpu one (``c`` names the model that the converter maps)."""
+    if is_torch_checkpoint(path):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        return ckpt if "model" in ckpt else {"model": ckpt}
+    ckpt = load_tts_tpu_checkpoint(path)
+    return {"model": state_dict_from_tts_tpu(ckpt, c),
+            "r": ckpt["meta"].get("r")}
 
 
 class Synthesizer:
     def __init__(self, tts_checkpoint: str, tts_config: str,
-                 vocoder_checkpoint: str, vocoder_config: str,
+                 vocoder_checkpoint: Optional[str] = None,
+                 vocoder_config: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.tts_config = load_config(tts_config)
@@ -63,20 +77,28 @@ class Synthesizer:
         self.model = setup_model(
             num_symbols(self.tts_config.get("use_phonemes", False)),
             self.tts_config.get("num_speakers", 1), self.tts_config)
-        ckpt = load_checkpoint(tts_checkpoint)
+        ckpt = load_checkpoint(tts_checkpoint, self.tts_config)
         self.model.load_state_dict(ckpt["model"])
         self.model.to(self.device).eval()
         if isinstance(self.model, GlowTTS):
             self.model.store_inverse()
+            if supports_fused_encoder(self.model.encoder):
+                self.model.encoder.packed_weights()   # B3's operands, once
         # serve at the checkpoint's reduction factor: a gradual-training
         # run stopped mid-schedule serves at its trained r, not the config's
         if isinstance(self.model, Tacotron2) and ckpt.get("r"):
             self.model.set_r(int(ckpt["r"]))
 
-        self.vocoder_config = load_config(vocoder_config)
+        self.vocoder_model = None
+        if vocoder_checkpoint:
+            self._load_vocoder(vocoder_checkpoint, vocoder_config)
+
+    def _load_vocoder(self, checkpoint: str, config: str) -> None:
+        self.vocoder_config = load_config(config)
         self.vocoder_ap = AudioProcessor(**self.vocoder_config.audio)
         # fold weight norm once at load: serving runs bare kernels
-        sd = fold_weight_norm(load_state_dict(vocoder_checkpoint))
+        sd = fold_weight_norm(load_checkpoint(checkpoint,
+                                              self.vocoder_config)["model"])
         gen = setup_generator(self.vocoder_config, use_weight_norm=False)
         gen.load_state_dict(sd)
         self.vocoder_model = gen.to(self.device).eval()
@@ -111,15 +133,24 @@ class Synthesizer:
         hop = self.vocoder_ap.hop_length
         return wav[:n * hop] if n < nb else wav
 
-    def tts(self, text: str) -> np.ndarray:
-        """Text -> waveform, sentence by sentence with silence joins."""
+    def tts(self, text: str, speaker_id: Optional[int] = None) -> np.ndarray:
+        """Text -> waveform, sentence by sentence with silence joins; the
+        vocoder's, or Griffin-Lim's when none is served. ``speaker_id`` is
+        tts_tpu's argument: its models take it as ``speaker_ids`` and a
+        single-speaker model (the only kind the port builds; the registry
+        refuses more) ignores it, so it changes nothing here."""
         start = time.time()
         wavs: List[np.ndarray] = []
+        use_gl = self.vocoder_model is None
         for sentence in split_into_sentences(text) or [text]:
             generator = torch.Generator(self.device).manual_seed(0)
-            result = synthesis(self.model, sentence, self.tts_config,
-                               self.device, generator=generator)
-            wavs.append(self._vocode(result["postnet_outputs"]))
+            result = synthesis(
+                self.model, sentence, self.tts_config, self.device,
+                generator=generator, ap=self.ap, use_griffin_lim=use_gl,
+                do_trim_silence=self.tts_config.get("do_trim_silence",
+                                                    False))
+            wavs.append(result["wav"] if use_gl
+                        else self._vocode(result["postnet_outputs"]))
             wavs.append(np.zeros(10000, np.float32))  # inter-sentence gap
         out = np.concatenate(wavs)
         process_time = time.time() - start

@@ -80,3 +80,19 @@ class GlowTTSEncoder(nn.Module):
         o_log_scale = torch.zeros_like(o_mean)
         o_dur_log = self.duration_predictor(x.detach(), x_mask)
         return o_mean, o_log_scale, o_dur_log, x_mask
+
+    @torch.no_grad()
+    def packed_weights(self):
+        """The fused encoder's operands (``ops/glow_encoder.py``), packed
+        once and kept on the module while every parameter keeps its storage
+        and version counter: a parameter moved, stepped by an optimizer or
+        overwritten by ``load_state_dict`` repacks, so a served model never
+        runs stale weights (as the 1x1 inverses, ROADMAP C6)."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        cached = self.__dict__.get("_packed")
+        if cached is None or cached[0] != key:
+            from tts_tpu_torch.ops.glow_encoder import \
+                pack_glow_encoder_params
+            cached = (key, pack_glow_encoder_params(self))
+            self.__dict__["_packed"] = cached
+        return cached[1]

@@ -7,8 +7,9 @@ monotonic alignment with ``maximum_path`` (the CUDA kernel on the card),
 both without gradient, as tts_tpu's ``stop_gradient``s; then it expands the
 encoder statistics through that alignment. ``glow_tts_loss`` is the flow MLE
 plus the duration loss; ``apply_ddi`` the data-dependent ActNorm init.
-Inference expands the statistics by predicted durations (``generate_path``)
-and inverts the flows.
+Inference runs the encoder as one fused call (B3: the hand-written kernels on
+the card) where the configuration allows, expands the statistics by
+predicted durations (``generate_path``) and inverts the flows.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from tts_tpu_torch.models.glow.decoder import FlowDecoder
 from tts_tpu_torch.models.glow.encoder import GlowTTSEncoder
 from tts_tpu_torch.models.glow.flows import ActNorm
 from tts_tpu_torch.models.glow.transformer import Dropout
+from tts_tpu_torch.ops.glow_encoder import (fused_glow_encoder,
+                                            supports_fused_encoder)
 from tts_tpu_torch.ops.mas import generate_path, maximum_path
 from tts_tpu_torch.ops.masking import sequence_mask
 
@@ -116,6 +119,19 @@ class GlowTTS(nn.Module):
             "y_lengths": mel_lengths_sqz,
         }
 
+    def encode(self, text: torch.Tensor, text_lengths: torch.Tensor):
+        """The encoder as inference runs it. In eval mode without autograd,
+        on a configuration that ``supports_fused_encoder`` accepts, it is
+        one ``fused_glow_encoder`` call (the B3 kernels for CUDA tensors,
+        their plain version for CPU tensors); otherwise (training mode, grad
+        mode) the module with its dropout."""
+        enc = self.encoder
+        if (not self.training and not torch.is_grad_enabled()
+                and supports_fused_encoder(enc)):
+            return fused_glow_encoder(enc, enc.packed_weights(), text,
+                                      text_lengths)
+        return enc(text, text_lengths)
+
     @torch.no_grad()
     def inference(self, text: torch.Tensor,
                   text_lengths: Optional[torch.Tensor] = None,
@@ -130,8 +146,8 @@ class GlowTTS(nn.Module):
         if text_lengths is None:
             text_lengths = torch.full((text.shape[0],), text.shape[1],
                                       dtype=torch.int32, device=text.device)
-        o_mean, o_log_scale, o_dur_log, x_mask = self.encoder(
-            text, text_lengths)
+        o_mean, o_log_scale, o_dur_log, x_mask = self.encode(text,
+                                                              text_lengths)
 
         # expm1, not exp: durations were regressed against log1p(sum attn)
         w = torch.expm1(o_dur_log[:, 0]) * x_mask[:, 0] * length_scale

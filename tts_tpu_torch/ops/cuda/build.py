@@ -30,7 +30,7 @@ from typing import Dict, Iterable, Optional
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parents[2] / "build" / "tts_tpu_torch_kernels"
 SOURCES = ("fused_resstack", "fused_melgan", "mas", "stft_mag",
-           "grouped_conv_grad", "bilstm", "taco2_decode")
+           "grouped_conv_grad", "bilstm", "taco2_decode", "glow_encoder")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,8 +4,11 @@
 Run on the card:
     python -m tts_tpu_torch.server.server --tts_checkpoint glow.pt \\
         --tts_config configs/glow_tts_ljspeech.json \\
-        --vocoder_checkpoint mbmelgan.pt \\
-        --vocoder_config configs/multiband_melgan.json
+        [--vocoder_checkpoint mbmelgan.pt \\
+         --vocoder_config configs/multiband_melgan.json]
+
+Without a vocoder the server answers with Griffin-Lim audio, as tts_tpu's
+does. Checkpoints may be the port's or tts_tpu's (see ``Synthesizer``).
 """
 
 from __future__ import annotations
@@ -89,12 +92,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--tts_checkpoint", required=True)
     parser.add_argument("--tts_config", required=True)
-    parser.add_argument("--vocoder_checkpoint", required=True)
-    parser.add_argument("--vocoder_config", required=True)
+    parser.add_argument("--vocoder_checkpoint", default=None)
+    parser.add_argument("--vocoder_config", default=None)
     parser.add_argument("--port", type=int, default=5002)
     parser.add_argument("--device", default=None,
                         help="torch device; CUDA unless given (e.g. cpu)")
     args = parser.parse_args(argv)
+    if args.vocoder_checkpoint and not args.vocoder_config:
+        parser.error("--vocoder_checkpoint needs --vocoder_config")
 
     from tts_tpu_torch.infer.synthesizer import Synthesizer
 

@@ -5,8 +5,11 @@ A port checkpoint is ``torch.save({"model": state_dict, "optimizer":
 optimizer state, "step", "epoch", "model_loss", "config"})`` with plain
 types only, so it loads with ``torch.load(weights_only=True)``; the
 ``Synthesizer`` serves it as it is (it reads ``"model"``). The config is
-written beside it as ``config.json`` too. Reading tts_tpu's flax-msgpack
-checkpoints is not ported yet.
+written beside it as ``config.json`` too.
+
+tts_tpu's own checkpoints (flax msgpack) are read by
+``load_tts_tpu_checkpoint`` without flax or msgpack (``compat/msgpack.py``);
+``is_torch_checkpoint`` tells the two formats apart by their first bytes.
 """
 
 from __future__ import annotations
@@ -63,6 +66,35 @@ def _to_cpu(tree):
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def is_torch_checkpoint(path: str) -> bool:
+    """True for a ``torch.save`` file (a zip archive: ``PK``), False for a
+    tts_tpu checkpoint (a msgpack map: fixmap, map16 or map32); raises for
+    anything else."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head == b"PK":
+        return True
+    if head and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        return False
+    raise ValueError(f"{path}: neither a torch.save file nor a tts_tpu "
+                     f"(flax msgpack) checkpoint")
+
+
+def load_tts_tpu_checkpoint(path: str) -> Dict[str, Any]:
+    """A tts_tpu checkpoint (``tts_tpu/train/checkpoint.py::save_checkpoint``)
+    -> {"params", "batch_stats", "meta"}: nested dicts of numpy arrays (a
+    bfloat16 leaf as a torch tensor) and the meta dict (step, epoch, r,
+    model_loss, date)."""
+    from tts_tpu_torch.compat.msgpack import msgpack_restore
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: a msgpack file without 'params'")
+    return {"params": tree["params"],
+            "batch_stats": tree.get("batch_stats") or {},
+            "meta": tree.get("meta") or {}}
 
 
 def save_best_model(current_loss: float, best_loss: float, output_dir: str,
