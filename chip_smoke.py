@@ -40,8 +40,10 @@ Phases, in order; any failure exits non-zero with its traceback:
    losses on full-width shapes (full band on 64 x 16,384 samples, subbands
    on 256 x 4,096), and the grouped-conv weight- and input-gradient kernels
    at the discriminator's three kernel layers of scale 0 at batch 64, each
-   against its plain version (dW within 1e-4 of its largest magnitude, dx
-   within 1e-5 absolute), with times, a library call's time and the bound;
+   against its plain version (dW within 1e-4 of its largest magnitude and
+   bitwise equal across two calls, dx within 1e-5 absolute), with times, a
+   library call's time and the bound (B5's: frames, window and banks in and
+   magnitudes out once, or a real FFT's 2.5 K log2 K operations a frame);
    then the STFT Function's gradient against autograd through the plain
    version on the card.
 8. gan training: configs/multiband_melgan.json at full width (batch 64,
@@ -56,7 +58,8 @@ Phases, in order; any failure exits non-zero with its traceback:
    generator checkpoint must serve finite, non-silent audio through the
    Synthesizer. Prints ms per step, loader ms, and the split of a step
    (generator and discriminator updates, each forward / backward /
-   optimizer, device and host-enqueue time, kernels' device time).
+   optimizer, device and host-enqueue time, kernels' device time, and the
+   device time of the STFT magnitude's backward: plain matmuls).
 
 9. taco2 kernels: bench.py's Tacotron2 at full width (r = 2, batch 64,
    128 symbols, seeded): the encoder BiLSTM kernel (B7) on the conv
@@ -86,6 +89,9 @@ Phases, in order; any failure exits non-zero with its traceback:
    ragged batch (16 x 192, lengths 40-192): within 1e-4 of the largest plain
    magnitude, padded rows exactly 0, the launches of one call as derived;
    times, the bound and torch.profiler's device time by kernel function.
+   Then GlowTTS.encode at the longest text B3's attention block holds (as
+   glow_encoder.cu exports it) and one symbol longer: B3 runs at the limit,
+   the module above it, both matching the module.
 13. cli: `tts_tpu_torch.bin.synthesize` in-process on phase 3's full-width
    checkpoints, with the Multiband-MelGAN vocoder and without it
    (Griffin-Lim, one short sentence): WAVs of the expected length, finite
@@ -850,23 +856,34 @@ def gan_kernel_phase(dev):
         for n_fft, hop, win in resolutions:
             fr = S.frames(y, n_fft, hop).reshape(-1, n_fft).contiguous()
             wr, wi = S.dft_banks(n_fft, win, dev)
-            got = SK.stft_mag_cuda(fr, wr, wi)
+            window, banks = S.half_banks(n_fft, win, dev)
+            got = SK.stft_mag_cuda(fr, window, banks)
             want = S.stft_magnitude_torch(fr, wr, wi)
             err = check_close(SK.KERNEL, got, want)
-            window = torch.hann_window(win, device=dev)
-            ms = cuda_time_ms(lambda: SK.stft_mag_cuda(fr, wr, wi), 10)
+            hann = torch.hann_window(win, device=dev)
+            ms = cuda_time_ms(lambda: SK.stft_mag_cuda(fr, window, banks), 10)
             plain_ms = cuda_time_ms(
                 lambda: S.stft_magnitude_torch(fr, wr, wi), 10)
             library_ms = cuda_time_ms(lambda: torch.stft(
-                y, n_fft, hop, win, window, center=True, pad_mode="reflect",
+                y, n_fft, hop, win, hann, center=True, pad_mode="reflect",
                 return_complex=True).abs(), 10)
             N, K = fr.shape
-            F_ = wr.shape[1]
-            nb, fl = nbytes(fr, wr, wi, got), 4.0 * N * K * F_ + 4.0 * N * F_
+            F_ = got.shape[1]
+            # the function's least work: frames, window and banks in and
+            # magnitudes out once; a real FFT's ~2.5 K log2 K operations a
+            # frame. tf32_gflop: the kernel's folded (N x G) x (G x G)
+            # products (four after a radix-2 step, else two), three TF32
+            # terms each
+            nb = nbytes(fr, window, banks, got)
+            fl = 2.5 * N * K * math.log2(K) + 4.0 * N * F_
+            G = S.fold_size(K)
+            tf32_fl = 3 * (4 if S.radix2(K) else 2) * 2.0 * N * G * G
             log({"kernel": SK.KERNEL, "n_fft": n_fft, "hop": hop, "win": win,
                  "frames": N, "bins": F_, "kernel_ms": ms,
                  "plain_ms": plain_ms, "library_ms": library_ms,
-                 "bound_ms": bound_ms(nb, fl)[0], "gflop": fl / 1e9,
+                 "bound_ms": bound_ms(nb, fl)[0], "bound_mb": nb / 1e6,
+                 "tf32_gflop": tf32_fl / 1e9,
+                 "tf32_tflops": tf32_fl / ms / 1e9,
                  "max_abs_err": err, "max_mag": float(want.abs().max())})
             res["err"] = max(res["err"], err)
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
@@ -906,6 +923,8 @@ def gan_kernel_phase(dev):
         got = GCK.grouped_conv_wgrad_cuda(x, dy, k, stride, groups)
         want = GC.grouped_conv_wgrad_torch(x, dy, k, stride, groups)
         err = check_close(GCK.WGRAD, got, want)
+        again = GCK.grouped_conv_wgrad_cuda(x, dy, k, stride, groups)
+        assert torch.equal(got, again), "wgrad differs between two calls"
         r = dict(ms=cuda_time_ms(lambda: GCK.grouped_conv_wgrad_cuda(
                      x, dy, k, stride, groups), 10),
                  plain_ms=cuda_time_ms(lambda: GC.grouped_conv_wgrad_torch(
@@ -917,7 +936,8 @@ def gan_kernel_phase(dev):
         log({"kernel": GCK.WGRAD, "shapes": shape, "kernel_ms": r["ms"],
              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
              "bound_ms": bound_ms(r["nb"], fl)[0], "max_abs_err": err,
-             "max_dw": float(want.abs().max())})
+             "max_dw": float(want.abs().max()),
+             "bitwise_equal_across_calls": True})
         wres["err"] = max(wres["err"], err)
         for key in ("ms", "plain_ms", "library_ms", "nb", "fl"):
             wres[key] += r[key]
@@ -1086,6 +1106,20 @@ def gan_training_phase(dev, root: str, card: str):
         (S.stft_cuda, GC.gc_cuda, GC.gc_cuda),
         ("stft_mag_cuda", "grouped_conv_wgrad_cuda",
          "grouped_conv_dgrad_cuda"), kernel_events)
+    # the STFT magnitude's backward (plain matmuls: two to recompute re and
+    # im, two for the frames' gradient), timed the same way; autograd looks
+    # the Function's backward up on the class at each call
+    stft_backward = S.StftMagnitudeFrames.backward
+
+    def timed_stft_backward(ctx, grad):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = stft_backward(ctx, grad)
+        ev[1].record()
+        kernel_events.append(("stft_magnitude_backward_plain", ev))
+        return out
+    S.StftMagnitudeFrames.backward = staticmethod(timed_stft_backward)
     split = []
     try:
         for _ in range(3):
@@ -1125,12 +1159,15 @@ def gan_training_phase(dev, root: str, card: str):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        S.StftMagnitudeFrames.backward = staticmethod(stft_backward)
     log({"gan_step_split_ms": {
             p: {"device": [d[i] for d, _, _, _ in split],
                 "host_enqueue": [h[i] for _, h, _, _ in split]}
             for i, p in enumerate(parts)},
          "step_device_ms": [t for _, _, t, _ in split],
          "kernel_device_ms_per_step": [k for _, _, _, k in split],
+         "stft_backward_device_ms_per_step": [
+             k.get("stft_magnitude_backward_plain") for _, _, _, k in split],
          "card": card})
     return launches
 
@@ -1550,8 +1587,10 @@ def glow_encoder_kernel_phase(dev):
     here = os.path.dirname(os.path.abspath(__file__))
     c = load_config(os.path.join(here, "configs", "glow_tts_ljspeech.json"))
     torch.manual_seed(SEED)
-    enc = setup_model(num_symbols(c.get("use_phonemes", False)), 1, c).encoder
-    enc = seed_encoder(enc, SEED).to(dev).eval()
+    model = setup_model(num_symbols(c.get("use_phonemes", False)), 1, c)
+    seed_encoder(model.encoder, SEED)
+    model = model.to(dev).eval()
+    enc = model.encoder
     assert GE.supports_fused_encoder(enc)
     packed = enc.packed_weights()
     d = packed.dims
@@ -1600,6 +1639,26 @@ def glow_encoder_kernel_phase(dev):
                        library_ms=None)
         else:
             res["err"] = max(res["err"], err)
+
+    # the longest text B3's attention block holds (exported by the kernel's
+    # source): GlowTTS.encode runs B3 up to it and the module above it
+    limit = GE.fused_encoder_max_length(enc, dev)
+    for T in (limit, limit + 1):
+        text = torch.randint(1, enc.emb.num_embeddings, (1, T), device=dev,
+                             generator=g)
+        lengths = torch.full((1,), T, device=dev)
+        before = build.LAUNCHES[GEK.KERNEL]
+        with torch.no_grad():
+            got = model.encode(text, lengths)
+            torch.cuda.synchronize()
+            launches = build.LAUNCHES[GEK.KERNEL] - before
+            want = enc(text, lengths)
+        assert launches == (GEK.launches_per_call(d) if T <= limit else 0), \
+            (T, limit, launches)
+        err = max(check_close(f"encode T={T}", a, b)
+                  for a, b in zip(got[:3], want[:3]))
+        log({"glow_encode_length_limit": limit, "T": T,
+             "b3_launches": launches, "vs_module_max_abs_err": err})
     return res
 
 

@@ -137,9 +137,17 @@ def test_mas_wrapper_rejects_cpu_operand(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,hop,win,T", [(171, 10, 60, 700),
                                              (683, 60, 300, 1500),
-                                             (2048, 240, 1200, 5000)])
+                                             (2048, 240, 1200, 5000),
+                                             (1024, 120, 600, 4100),
+                                             (512, 50, 240, 3000),
+                                             (384, 30, 150, 1300),
+                                             (2048, 240, 1200, 200000),
+                                             (683, 60, 300, 100000)])
 def test_stft_kernel_matches_plain(cuda, n_fft, hop, win, T):
-    """Odd n_fft and bins that are no multiple of the kernel's tiles."""
+    """The six loss resolutions: odd n_fft, bins and frame counts (3 x 71,
+    3 x 26, ...) that are no multiple of the kernel's tiles; and two with
+    more blocks than the card has SMs, where the staging pipeline runs
+    under load."""
     y = torch.randn(3, T, generator=torch.Generator().manual_seed(n_fft))
     want = S.stft_magnitude(y, n_fft, hop, win)
     before = build.LAUNCHES[SK.KERNEL]
@@ -199,6 +207,45 @@ def test_grouped_conv_kernels_match_plain(cuda, geom):
         atol=1e-5)
 
 
+# wgrad edges (B, L, groups, n, k, stride): odd B; B no multiple of the
+# items a block takes; L_out no multiple of a segment (512 at k 41, s 4);
+# n < 4; s < 4; k = 63 (several tap groups a phase); short items packed
+# several to a pass; the float4 path (s 4, k 41, L_out a multiple of 4) at
+# an odd B, with a ragged last segment and with 2 items a pass
+WGRAD_EDGES = [(3, 4100, 8, 4, 41, 4), (5, 1000, 6, 4, 41, 4),
+               (7, 97, 5, 3, 63, 1), (3, 2050, 4, 2, 63, 2),
+               (2, 999, 3, 1, 63, 3), (9, 44, 7, 4, 41, 4),
+               (1, 300, 2, 4, 11, 1), (65, 1024, 3, 4, 41, 4),
+               (3, 8192, 5, 4, 41, 4), (3, 2064, 4, 4, 41, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", WGRAD_EDGES)
+def test_wgrad_kernel_edge_geometries(cuda, geom):
+    B, L, g, n, k, s = geom
+    x, _, dy = _gc_inputs(geom)
+    dw = GCK.grouped_conv_wgrad_cuda(x.to(cuda), dy.to(cuda), k, s, g)
+    torch.cuda.synchronize()
+    _close(dw, GC.grouped_conv_wgrad_torch(x, dy, k, s, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(64, 4096, 64, 4, 41, 4),
+                                  (7, 97, 5, 3, 63, 1)])
+def test_wgrad_is_bitwise_deterministic(cuda, geom):
+    """No atomics: two calls on the same inputs give the same bits (down_1's
+    shape at batch 64, and an edge geometry)."""
+    B, L, g, n, k, s = geom
+    gen = torch.Generator(cuda).manual_seed(L)
+    x = torch.randn(B, g, L, device=cuda, generator=gen)
+    lout = (L + 2 * ((k - 1) // 2) - k) // s + 1
+    dy = torch.randn(B, g * n, lout, device=cuda, generator=gen)
+    first = GCK.grouped_conv_wgrad_cuda(x, dy, k, s, g)
+    second = GCK.grouped_conv_wgrad_cuda(x, dy, k, s, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_discriminator_backward_runs_the_kernels(cuda):
     """A full-width discriminator's backward on the card launches both
@@ -240,7 +287,7 @@ def test_new_wrappers_never_fall_back(cuda, monkeypatch):
     GC.grouped_conv_dgrad(dy, w, 1024, 4, 16)
     with pytest.raises(ValueError):
         SK.stft_mag_cuda(torch.randn(4, 171, device=cuda),
-                         *S.dft_banks(171, 60, torch.device("cpu")))
+                         *S.half_banks(171, 60, torch.device("cpu")))
     with pytest.raises(ValueError):
         GCK.grouped_conv_wgrad_cuda(x, dy.cpu(), 41, 4, 16)
     with pytest.raises(ValueError):     # 4 inputs per group: not taken
@@ -467,3 +514,43 @@ def test_glow_inference_reaches_the_kernel(cuda, monkeypatch):
         GEK.glow_encoder_cuda(model.encoder.packed_weights().flat,
                               model.encoder.packed_weights().dims, emb,
                               torch.ones(1, 8, device=cuda))
+
+
+@pytest.mark.cuda
+def test_glow_encode_above_the_kernels_text_limit(cuda):
+    """GlowTTS.encode on the card: at the longest text B3's attention block
+    holds (exported by glow_encoder.cu) B3 runs; one symbol more runs the
+    module, which matches it; B3 itself refuses that length."""
+    from tts_tpu_torch.models.glow_tts import GlowTTS
+    from tts_tpu_torch.ops import glow_encoder as GE
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    torch.manual_seed(0)
+    model = GlowTTS(num_chars=60, hidden_channels_enc=192,
+                    hidden_channels_dec=32, filter_channels=768,
+                    filter_channels_dp=256, num_layers_enc=1,
+                    num_flow_blocks_dec=2, num_block_layers=2)
+    model.encoder.load_state_dict(
+        _seeded_encoder(192, 2, 768, 256, 1, seed=7).state_dict())
+    model = model.to(cuda).eval()
+    limit = GE.fused_encoder_max_length(model.encoder, cuda)
+    assert limit == GEK.max_text_length(96, cuda) > 512
+    g = torch.Generator().manual_seed(8)
+    outs = {}
+    for T in (limit, limit + 1):
+        text = torch.randint(1, 60, (1, T), generator=g).to(cuda)
+        lengths = torch.tensor([T], device=cuda)
+        before = build.LAUNCHES[GEK.KERNEL]
+        with torch.no_grad():
+            got = model.encode(text, lengths)
+            torch.cuda.synchronize()
+            ran = build.LAUNCHES[GEK.KERNEL] - before
+            want = model.encoder(text, lengths)
+        assert ran == (GEK.launches_per_call(
+            model.encoder.packed_weights().dims) if T == limit else 0)
+        for a, b in zip(got[:3], want[:3]):
+            _close(a, b)
+        outs[T] = (text, lengths)
+    text, lengths = outs[limit + 1]
+    packed = model.encoder.packed_weights()
+    with torch.no_grad(), pytest.raises(RuntimeError, match="failed"):
+        GE.fused_glow_encoder(model.encoder, packed, text, lengths)

@@ -24,7 +24,8 @@ from tts_tpu_torch.models.glow.decoder import FlowDecoder
 from tts_tpu_torch.models.glow.encoder import GlowTTSEncoder
 from tts_tpu_torch.models.glow.flows import ActNorm
 from tts_tpu_torch.models.glow.transformer import Dropout
-from tts_tpu_torch.ops.glow_encoder import (fused_glow_encoder,
+from tts_tpu_torch.ops.glow_encoder import (fused_encoder_max_length,
+                                            fused_glow_encoder,
                                             supports_fused_encoder)
 from tts_tpu_torch.ops.mas import generate_path, maximum_path
 from tts_tpu_torch.ops.masking import sequence_mask
@@ -121,15 +122,19 @@ class GlowTTS(nn.Module):
 
     def encode(self, text: torch.Tensor, text_lengths: torch.Tensor):
         """The encoder as inference runs it. In eval mode without autograd,
-        on a configuration that ``supports_fused_encoder`` accepts, it is
-        one ``fused_glow_encoder`` call (the B3 kernels for CUDA tensors,
-        their plain version for CPU tensors); otherwise (training mode, grad
-        mode) the module with its dropout."""
+        on a configuration that ``supports_fused_encoder`` accepts and a
+        text no longer than ``fused_encoder_max_length`` (what B3's
+        attention block holds on the card), it is one ``fused_glow_encoder``
+        call (the B3 kernels for CUDA tensors, their plain version for CPU
+        tensors); otherwise (training mode, grad mode, a longer text) the
+        module with its dropout."""
         enc = self.encoder
         if (not self.training and not torch.is_grad_enabled()
                 and supports_fused_encoder(enc)):
-            return fused_glow_encoder(enc, enc.packed_weights(), text,
-                                      text_lengths)
+            limit = fused_encoder_max_length(enc, text.device)
+            if limit is None or text.shape[1] <= limit:
+                return fused_glow_encoder(enc, enc.packed_weights(), text,
+                                          text_lengths)
         return enc(text, text_lengths)
 
     @torch.no_grad()

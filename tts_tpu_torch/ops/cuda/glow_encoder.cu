@@ -41,8 +41,9 @@
 // attention_kernel: one block per (item, head, 16 query rows; down to 4
 // where the blocks would be fewer than the SMs). Scores
 // q . k / sqrt(kc) against all T keys of the item are kept in shared memory
-// (T floats a row, any T the card's shared memory holds: T <= 2,600 at
-// kc 96), keys staged 64 at a time; the key-side band q . emb_rel_k[r] /
+// (T floats a row, any T the card's shared memory holds: T <= 3,043 at
+// kc 96 on an H100, glow_encoder_max_text_length; GlowTTS.encode runs the
+// module above it), keys staged 64 at a time; the key-side band q . emb_rel_k[r] /
 // sqrt(kc) is added at |j - i| <= 4; key columns beyond the length are set
 // to -1e4, as tts_tpu sets them; softmax in float32; then P V (values staged
 // 64 at a time) plus the value-side band sum_r p[i, i + r - 4] emb_rel_v[r].
@@ -517,6 +518,20 @@ long long glow_encoder_weight_floats(int C, int F, int Fdp, int H, int L,
   return n;
 }
 
+// The longest text T whose attention block fits the opt-in shared memory of
+// `device` at k_ch = kc, by attention_floats at the largest query tile TQ
+// (a text that long always runs TQ query rows per block); a negative CUDA
+// error if the card cannot be asked. Callers run the module above it.
+int glow_encoder_max_text_length(int kc, int device) {
+  int optin = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t floats = (size_t)optin / sizeof(float);
+  const size_t fixed = attention_floats(0, kc, TQ);
+  return floats < fixed ? 0 : (int)((floats - fixed) / TQ);
+}
+
 // The whole encoder on `stream`: x (B*T, C) holds the embedded text on entry
 // (it is the residual stream, overwritten); mask (B*T) 1/0; h0, h1 (B*T,
 // max(C, F, Fdp)), qkv (B*T, 3C), att (B*T, C) scratch; out (B*T, 2 n_out +
@@ -543,8 +558,10 @@ int glow_encoder_forward(float* x, const float* mask, const float* weights,
   const size_t smem = attention_floats(T, kc, tq) * sizeof(float);
   if ((err = cudaFuncSetAttribute(
            attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-           (int)smem)) != cudaSuccess)
+           (int)smem)) != cudaSuccess) {
+    cudaGetLastError();   // reported here: not to a later launch's check
     return (int)err;
+  }
   Walk w{weights};
   float* bufs[2] = {h0, h1};
 

@@ -12,6 +12,7 @@ operations at a large batch; see the source.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -27,6 +28,7 @@ _SIGNATURES = {
     "glow_encoder_forward": (ctypes.c_int, [_P] * 8 + [_I] * 12
                              + [ctypes.c_float, _P]),
     "glow_encoder_weight_floats": (ctypes.c_longlong, [_I] * 10),
+    "glow_encoder_max_text_length": (ctypes.c_int, [_I, _I]),
 }
 
 
@@ -34,6 +36,26 @@ def launches_per_call(dims) -> int:
     """Prenet convs + projection, 5 per layer, proj_mean, the duration
     predictor's 2 convs and projection."""
     return dims.n_pre + 1 + 5 * dims.layers + 4
+
+
+@functools.lru_cache(maxsize=None)
+def _max_text_length(kc: int, index: int) -> int:
+    lib = build.library("glow_encoder", _SIGNATURES)
+    n = lib.glow_encoder_max_text_length(kc, index)
+    if n < 0:
+        raise RuntimeError(f"glow encoder: cannot read the shared memory "
+                           f"limit: {lib.kernel_error_string(-n).decode()}")
+    return n
+
+
+def max_text_length(kc: int, device: torch.device) -> int:
+    """The longest text (T) whose attention block the card's shared memory
+    holds at k_ch ``kc``, as ``glow_encoder.cu`` computes it from
+    ``attention_floats`` (so the two cannot drift apart). A longer text
+    makes the kernel raise."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _max_text_length(kc, index)
 
 
 def glow_encoder_cuda(flat: torch.Tensor, dims, emb: torch.Tensor,

@@ -23,10 +23,10 @@ from tts_tpu_torch.ops.cuda import build
 
 WGRAD = "grouped_conv_wgrad"
 DGRAD = "grouped_conv_dgrad"
-CHUNK = 1024          # output positions per wgrad block (LC in the source)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
+    "grouped_conv_wgrad_scratch_floats": (ctypes.c_longlong, [_I] * 6),
     "grouped_conv_wgrad_forward": (ctypes.c_int, [_P, _P, _P, _P] + [_I] * 8
                                    + [_P]),
     "grouped_conv_dgrad_forward": (ctypes.c_int, [_P, _P, _P] + [_I] * 8
@@ -69,10 +69,10 @@ def grouped_conv_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
     cout = dy.shape[1]
     dw = torch.empty((cout, 1, kernel_size), dtype=torch.float32,
                      device=x.device)
-    n_chunks = B * -(-Lout // CHUNK)
-    partial = torch.empty((n_chunks, cout * kernel_size), dtype=torch.float32,
-                          device=x.device)
     lib = build.library("grouped_conv_grad", _SIGNATURES)
+    partial = torch.empty(lib.grouped_conv_wgrad_scratch_floats(
+        B, groups, n, Lout, kernel_size, stride), dtype=torch.float32,
+        device=x.device)
     err = lib.grouped_conv_wgrad_forward(
         build.ptr(x), build.ptr(dy), build.ptr(dw), build.ptr(partial), B,
         groups, n, L, Lout, kernel_size, stride, pad,

@@ -74,6 +74,17 @@ def supports_fused_encoder(enc) -> bool:
             and enc.duration_predictor.conv_1.out_channels <= 256)
 
 
+def fused_encoder_max_length(enc, device: torch.device):
+    """The longest text ``fused_glow_encoder`` runs for ``enc`` on
+    ``device``: on a CUDA device what the attention kernel's shared memory
+    holds (``ops/cuda/glow_encoder.py::max_text_length``); None on the CPU,
+    whose plain version has no limit."""
+    if device.type == "cpu":
+        return None
+    kc = enc.hidden_channels // enc.encoder.attn_layers[0].num_heads
+    return glow_encoder_cuda.max_text_length(kc, device)
+
+
 def _layout(d: EncoderDims) -> List[Tuple[str, tuple]]:
     """(name, shape) of every packed weight, in the kernel's order."""
     C, F_, Fd, kc = d.hidden, d.filt, d.filt_dp, d.hidden // d.heads

@@ -9,7 +9,10 @@ written beside it as ``config.json`` too.
 
 tts_tpu's own checkpoints (flax msgpack) are read by
 ``load_tts_tpu_checkpoint`` without flax or msgpack (``compat/msgpack.py``);
-``is_torch_checkpoint`` tells the two formats apart by their first bytes.
+``is_torch_checkpoint`` tells the formats apart by their first bytes: a
+zip archive (``PK``, ``torch.save`` since torch 1.6) or a pickle (``0x80``,
+a legacy ``torch.save`` file such as a Mozilla TTS ``.pth.tar``) is torch's,
+a non-empty msgpack map is tts_tpu's.
 """
 
 from __future__ import annotations
@@ -69,14 +72,16 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def is_torch_checkpoint(path: str) -> bool:
-    """True for a ``torch.save`` file (a zip archive: ``PK``), False for a
-    tts_tpu checkpoint (a msgpack map: fixmap, map16 or map32); raises for
-    anything else."""
+    """True for a ``torch.save`` file: a zip archive (``PK``) or a legacy
+    pickle (protocol 2 and later start with the PROTO opcode ``0x80``).
+    False for a tts_tpu checkpoint: a msgpack map of 1-15 keys (fixmap
+    0x81-0x8F; 0x80, the empty map, cannot hold ``params``), map16 (0xDE) or
+    map32 (0xDF). Raises for anything else."""
     with open(path, "rb") as f:
         head = f.read(2)
-    if head == b"PK":
+    if head == b"PK" or head[:1] == b"\x80":
         return True
-    if head and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+    if head and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
         return False
     raise ValueError(f"{path}: neither a torch.save file nor a tts_tpu "
                      f"(flax msgpack) checkpoint")
