@@ -23,10 +23,13 @@ Phases, in order; any failure exits non-zero with its traceback:
 4. batched: Glow-TTS at batch 128 (128 symbols, 248 frames) then the
    generator; audio-seconds per second beside the card's name and limit.
 5. mas: the monotonic-alignment-search kernel at the training path's shapes
-   (B=32, T_x=192, T_y=864, ragged lengths from the seed), once on random
-   log-likelihoods and once on integers full of exact ties; its path must
-   equal the plain version's exactly. One JSON line with its time, the plain
-   version's and the byte bound.
+   (B=32, T_x=192, T_y=864, ragged lengths from the seed), on random
+   log-likelihoods, on integers full of exact ties and on a mask with zeros
+   inside its lengths; its path must equal the plain version's exactly. One
+   JSON line each with its time, the plain version's, the byte bound, the
+   latency floor of the columns' dependent chain, and torch.profiler's
+   device time by kernel function over one call (all the call puts on the
+   card).
 6. training: a synthetic LJSpeech-format corpus (96 utterances of 25-185
    characters, tone plus noise at ~15 characters per second, 1.5-10 s) and
    configs/glow_tts_ljspeech.json at full width, batch 32, 2 epochs, trained
@@ -40,8 +43,8 @@ Phases, in order; any failure exits non-zero with its traceback:
    losses on full-width shapes (full band on 64 x 16,384 samples, subbands
    on 256 x 4,096), and the grouped-conv weight- and input-gradient kernels
    at the discriminator's three kernel layers of scale 0 at batch 64, each
-   against its plain version (dW within 1e-4 of its largest magnitude and
-   bitwise equal across two calls, dx within 1e-5 absolute), with times, a
+   against its plain version (dW within 1e-4 of its largest magnitude, dx
+   within 1e-5 absolute, each bitwise equal across two calls), with times, a
    library call's time and the bound (B5's: frames, window and banks in and
    magnitudes out once, or a real FFT's 2.5 K log2 K operations a frame);
    then the STFT Function's gradient against autograd through the plain
@@ -579,22 +582,34 @@ def batched_phase(dev, card: str):
 # ---------------------------------------------------------------------------
 
 MAS_SHAPE = (32, 192, 864)     # the training phase's largest batch
+# MAS's latency floor (an estimate): each item's DP is a chain of t_y
+# dependent columns (a shuffle, a max and an add: ~40 cycles) and its
+# backtrack a chain of t_y dependent steps (~40 cycles each at most), on
+# one SM, at the H100 SXM's 1.98 GHz boost clock
+MAS_CYCLES_PER_COLUMN = 40 + 40
+SM_CLOCK_HZ = 1.98e9
 
 
-def mas_inputs(dev, ties: bool):
+def mas_inputs(dev, case: str):
+    """``case``: "random" log-likelihoods, "ties" (small integers: many
+    exact ties) or "zeroed_cell" (random, and a mask with zeros inside its
+    lengths, off the first row and column that give them)."""
     B, T_x, T_y = MAS_SHAPE
     g = torch.Generator().manual_seed(SEED)
     t_xs = torch.randint(T_x // 2, T_x + 1, (B,), generator=g)
     t_ys = torch.maximum(4 * t_xs, torch.randint(T_y // 2, T_y + 1, (B,),
                                                  generator=g)).clamp(max=T_y)
     t_xs[0], t_ys[0] = T_x, T_y
-    if ties:
+    if case == "ties":
         value = torch.randint(-3, 4, (B, T_x, T_y), generator=g).float()
     else:
         value = -40.0 + 10.0 * torch.randn(B, T_x, T_y, generator=g)
     mask = ((torch.arange(T_x)[None, :, None] < t_xs[:, None, None])
-            & (torch.arange(T_y)[None, None, :] < t_ys[:, None, None]))
-    return value.to(dev), mask.float().to(dev)
+            & (torch.arange(T_y)[None, None, :] < t_ys[:, None, None])).float()
+    if case == "zeroed_cell":
+        mask[:, 1:, 1:] *= (torch.rand(B, T_x - 1, T_y - 1, generator=g)
+                            > 0.05).float()
+    return value.to(dev), mask.to(dev)
 
 
 def mas_phase(dev):
@@ -602,33 +617,43 @@ def mas_phase(dev):
     from tts_tpu_torch.ops.mas import maximum_path_torch
 
     res = dict(ms=None, plain_ms=None, library_ms=None)
-    for ties in (False, True):
-        value, mask = mas_inputs(dev, ties)
+    for case in ("random", "ties", "zeroed_cell"):
+        value, mask = mas_inputs(dev, case)
         got = MAS.maximum_path_cuda(value, mask)
         want = maximum_path_torch(value, mask)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(
                 f"MAS kernel path differs from the plain version at "
-                f"{int((got != want).sum())} cells (ties={ties})")
-        assert torch.equal(got.sum(dim=1), mask[:, 0, :])
+                f"{int((got != want).sum())} cells ({case})")
+        if case != "zeroed_cell":   # there the path is masked too
+            assert torch.equal(got.sum(dim=1), mask[:, 0, :])
         err = float((got - want).abs().max())
         ms = cuda_time_ms(lambda: MAS.maximum_path_cuda(value, mask), 20)
         plain_ms = cuda_time_ms(lambda: maximum_path_torch(value, mask), 2,
                                 warmup=1)
+        # device time by kernel function over one wrapper call: everything
+        # the call puts on the card
+        profile = kernel_profile(lambda: MAS.maximum_path_cuda(value, mask))
         B, T_x, T_y = value.shape
-        cells = int((mask > 0).sum())
+        cells = int((mask[:, :, :1] * mask[:, :1, :] > 0).sum())
         # the function's own traffic: value read inside the lengths, the
         # whole mask read, the whole path written (the kernel's decision
         # scratch is its own choice, not counted); three fp32 operations per
         # cell inside the lengths
         bound = bound_ms(4 * cells + (4 + 4) * B * T_x * T_y, 3.0 * cells)
-        log({"kernel": MAS.KERNEL, "ties": ties, "kernel_ms": ms,
+        t_y = int((mask[:, 0, :] > 0).sum(dim=1).max())
+        floor_ms = t_y * MAS_CYCLES_PER_COLUMN / SM_CLOCK_HZ * 1e3
+        log({"kernel": MAS.KERNEL, "case": case, "kernel_ms": ms,
              "plain_ms": plain_ms, "library_ms": None,
              "bound_ms": bound[0], "bound_by": bound[1],
+             "latency_floor_ms": floor_ms,
+             "latency_floor": f"{t_y} columns x {MAS_CYCLES_PER_COLUMN} "
+                              f"cycles at {SM_CLOCK_HZ / 1e9} GHz",
+             "device_us_by_kernel": profile,
              "max_abs_err": err, "cells_in_lengths": cells,
              "shapes": f"B={B}, T_x={T_x}, T_y={T_y}"})
-        if not ties:
+        if case == "random":
             res.update(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
     return res
 
@@ -947,6 +972,8 @@ def gan_kernel_phase(dev):
         err = float((got - want).abs().max())
         if not err <= DX_TOL:
             raise AssertionError(f"{GCK.DGRAD}: max |err| {err} > {DX_TOL}")
+        again = GCK.grouped_conv_dgrad_cuda(dy, w, L, stride, groups)
+        assert torch.equal(got, again), "dgrad differs between two calls"
         r = dict(ms=cuda_time_ms(lambda: GCK.grouped_conv_dgrad_cuda(
                      dy, w, L, stride, groups), 10),
                  plain_ms=cuda_time_ms(lambda: GC.grouped_conv_dgrad_torch(
@@ -958,7 +985,8 @@ def gan_kernel_phase(dev):
         log({"kernel": GCK.DGRAD, "shapes": shape, "kernel_ms": r["ms"],
              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
              "bound_ms": bound_ms(r["nb"], fl)[0], "max_abs_err": err,
-             "max_dx": float(want.abs().max())})
+             "max_dx": float(want.abs().max()),
+             "bitwise_equal_across_calls": True})
         dres["err"] = max(dres["err"], err)
         for key in ("ms", "plain_ms", "library_ms", "nb", "fl"):
             dres[key] += r[key]

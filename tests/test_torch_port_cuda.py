@@ -117,13 +117,82 @@ def _mas_inputs(B, T_x, T_y, seed, ties):
                                             (2, 1100, 1300, False)])
 def test_mas_kernel_equals_plain(cuda, B, T_x, T_y, ties):
     """Ragged lengths; integer values give many exact ties; T_x = 1100
-    exceeds one block's 1024 threads."""
-    value, mask = _mas_inputs(B, T_x, T_y, seed=T_x + T_y, ties=ties)
+    takes five DP warps, and at T_y = 1300 its decisions do not fit in
+    shared memory beside the tiles."""
+    _mas_one_launch(cuda, *_mas_inputs(B, T_x, T_y, seed=T_x + T_y,
+                                       ties=ties))
+
+
+def _mas_one_launch(cuda, value, mask):
+    """The kernel's path (one launch) against the plain version's."""
     want = maximum_path_torch(value, mask)
     before = build.LAUNCHES[MAS.KERNEL]
     got = maximum_path(value.to(cuda), mask.to(cuda))
     torch.cuda.synchronize()
     assert build.LAUNCHES[MAS.KERNEL] - before == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_x,T_y", [(3, 1, 50), (4, 31, 120),
+                                       (4, 32, 120), (4, 33, 120),
+                                       (3, 64, 202), (3, 65, 101),
+                                       (5, 192, 300), (2, 300, 700)])
+def test_mas_kernel_text_widths(cuda, B, T_x, T_y):
+    """T_x at and around the DP warp's 32 lanes and several rows a lane
+    (one DP warp up to 256, two beyond); T_y not a multiple of 4 (8- and
+    4-byte staging)."""
+    _mas_one_launch(cuda, *_mas_inputs(B, T_x, T_y, seed=T_x, ties=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_mas_kernel_square_lengths(cuda, ties):
+    """t_x = t_y in every item: the only path is the diagonal."""
+    value, _ = _mas_inputs(4, 70, 70, seed=3, ties=ties)
+    lengths = torch.tensor([70, 33, 32, 1])
+    idx = torch.arange(70)
+    mask = ((idx[None, :, None] < lengths[:, None, None])
+            & (idx[None, None, :] < lengths[:, None, None])).float()
+    _mas_one_launch(cuda, value, mask)
+
+
+@pytest.mark.cuda
+def test_mas_kernel_zeroed_cell_inside_the_lengths(cuda):
+    """A mask with zeros inside its (t_x, t_y) rectangle (not in its first
+    row or column, which give the lengths): value is zeroed there and the
+    path masked there, as in the plain version. Integer values: ties."""
+    value, mask = _mas_inputs(6, 192, 864, seed=11, ties=True)
+    mask[:, 5:9, 40] = 0.0
+    mask[:, 100, 300:303] = 0.0
+    mask[2, 1:, 1:] *= (torch.rand(191, 863, generator=torch.Generator()
+                                   .manual_seed(1)) > 0.1).float()
+    _mas_one_launch(cuda, value, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_x,T_y", [(1, 1100, 4000), (1, 2100, 2300)])
+def test_mas_kernel_decisions_in_global_scratch(cuda, B, T_x, T_y):
+    """Shapes whose decision plane does not fit in shared memory beside the
+    tiles (1 x 1100 x 4000), and a T_x past the tiles (2100: the general
+    kernel); both keep their decisions in the wrapper's scratch."""
+    lib = build.library("mas", MAS._SIGNATURES)
+    assert lib.mas_scratch_words(32, 192, 864) == 0
+    assert lib.mas_scratch_words(B, T_x, T_y) > 0
+    _mas_one_launch(cuda, *_mas_inputs(B, T_x, T_y, seed=T_y, ties=False))
+
+
+@pytest.mark.cuda
+def test_mas_kernel_unaligned_operands(cuda):
+    """value a contiguous view at a 4-byte offset: 4-byte staging."""
+    v, mask = _mas_inputs(3, 40, 96, seed=5, ties=False)
+    buf = torch.zeros(v.numel() + 1, device=cuda)
+    buf[1:] = v.reshape(-1).to(cuda)
+    value = buf[1:].view(v.shape)
+    assert value.data_ptr() % 16 == 4
+    want = maximum_path_torch(v, mask)
+    got = MAS.maximum_path_cuda(value, mask.to(cuda))
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 
 
@@ -242,6 +311,72 @@ def test_wgrad_is_bitwise_deterministic(cuda, geom):
     dy = torch.randn(B, g * n, lout, device=cuda, generator=gen)
     first = GCK.grouped_conv_wgrad_cuda(x, dy, k, s, g)
     second = GCK.grouped_conv_wgrad_cuda(x, dy, k, s, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+# dgrad edges (B, L, groups, n, k, stride): odd B on the float4 path; its
+# last segment (256 float4s) ragged (L 4112) and a row shorter than the
+# dy window (L 48); n < 4; k 9, 57 and 1 (pad 4, 28, 0) on the float4 path;
+# L_out no multiple of 4 (L 4100), s < 4 and k = 63 (pad 31) on the general
+# kernel
+DGRAD_EDGES = [(5, 1024, 6, 4, 41, 4), (3, 4112, 8, 4, 41, 4),
+               (7, 48, 5, 4, 41, 4), (3, 2048, 4, 2, 41, 4),
+               (2, 1024, 3, 3, 41, 4), (2, 512, 4, 4, 9, 4),
+               (2, 512, 3, 4, 57, 4), (2, 64, 3, 4, 1, 4),
+               (3, 4100, 8, 4, 41, 4), (7, 97, 5, 3, 63, 1),
+               (3, 2050, 4, 2, 63, 2), (2, 999, 3, 1, 63, 3),
+               (3, 1024, 4, 4, 63, 4)]
+
+
+def _dx_close(got, dy, w, L, s, g):
+    torch.testing.assert_close(
+        got.cpu(), GC.grouped_conv_dgrad_torch(dy, w, L, s, g), rtol=0,
+        atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", DGRAD_EDGES)
+def test_dgrad_kernel_edge_geometries(cuda, geom):
+    B, L, g, n, k, s = geom
+    _, w, dy = _gc_inputs(geom)
+    before = build.LAUNCHES[GCK.DGRAD]
+    dx = GCK.grouped_conv_dgrad_cuda(dy.to(cuda), w.to(cuda), L, s, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GCK.DGRAD] - before == 1
+    _dx_close(dx, dy, w, L, s, g)
+
+
+@pytest.mark.cuda
+def test_dgrad_kernel_dy_at_a_4_byte_offset(cuda):
+    """dy a contiguous view 4 bytes into a larger buffer: not 16-byte
+    aligned, so the general kernel, still one launch and still right."""
+    B, L, g, n, k, s = geom = (3, 1024, 16, 4, 41, 4)
+    _, w, dy = _gc_inputs(geom)
+    buf = torch.zeros(dy.numel() + 1, device=cuda)
+    buf[1:] = dy.reshape(-1).to(cuda)
+    dy_view = buf[1:].view(dy.shape)
+    assert dy_view.data_ptr() % 16 == 4
+    before = build.LAUNCHES[GCK.DGRAD]
+    dx = GCK.grouped_conv_dgrad_cuda(dy_view, w.to(cuda), L, s, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GCK.DGRAD] - before == 1
+    _dx_close(dx, dy, w, L, s, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(64, 4096, 64, 4, 41, 4),
+                                  (7, 97, 5, 3, 63, 1)])
+def test_dgrad_is_bitwise_deterministic(cuda, geom):
+    """Each dx sample summed by one thread in a fixed order: two calls give
+    the same bits (down_1's shape at batch 64, and the general kernel)."""
+    B, L, g, n, k, s = geom
+    gen = torch.Generator(cuda).manual_seed(L)
+    w = 0.1 * torch.randn(g * n, 1, k, device=cuda, generator=gen)
+    lout = (L + 2 * ((k - 1) // 2) - k) // s + 1
+    dy = torch.randn(B, g * n, lout, device=cuda, generator=gen)
+    first = GCK.grouped_conv_dgrad_cuda(dy, w, L, s, g)
+    second = GCK.grouped_conv_dgrad_cuda(dy, w, L, s, g)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 

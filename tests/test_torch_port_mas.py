@@ -58,9 +58,42 @@ def _one_symbol(seed):
     return value, _mask([1, 1], [23, 11], 1, 23)
 
 
+def _warp_edge(T_x, seed):
+    """T_x = 31, 32, 33: around the 32 text rows of one warp's lanes in the
+    card's kernel; T_y <= 80 keeps interpret mode quick."""
+    rng = np.random.default_rng(seed)
+    T_y = 80
+    value = rng.standard_normal((2, T_x, T_y)).astype(np.float32)
+    return value, _mask([T_x, T_x - 7], [T_y, 61], T_x, T_y)
+
+
+def _zeroed_cell(seed):
+    """Zeros inside the (t_x, t_y) rectangle, off its first row and column
+    (which give the lengths): value is zeroed there and the path masked."""
+    rng = np.random.default_rng(seed)
+    value = rng.integers(-2, 3, size=(2, 12, 30)).astype(np.float32)
+    mask = _mask([12, 9], [30, 25], 12, 30)
+    mask[0, 3, 5] = mask[0, 4, 6] = mask[1, 2, 2] = 0.0
+    mask[0, 11, 20:24] = 0.0
+    return value, mask
+
+
 CASES = {"ragged0": lambda: _ragged(0), "ragged1": lambda: _ragged(1),
          "ties": lambda: _ties(2), "square": lambda: _square(3),
-         "one_symbol": lambda: _one_symbol(4)}
+         "one_symbol": lambda: _one_symbol(4),
+         "warp31": lambda: _warp_edge(31, 7),
+         "warp32": lambda: _warp_edge(32, 8),
+         "warp33": lambda: _warp_edge(33, 9),
+         "zeroed_cell": lambda: _zeroed_cell(10)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _port(value, mask):

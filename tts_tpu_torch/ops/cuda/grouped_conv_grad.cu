@@ -17,7 +17,8 @@
 //
 // Bound on the card: bytes. Each layer reads x and dy once and writes dW
 // (wgrad) or reads dy and writes dx (dgrad): at scale 0, B = 64, about
-// 134 MB, 0.040 ms at 3.35 TB/s, against 1.4 GFLOP (0.020 ms at 67 TFLOP/s).
+// 134 MB, 0.040 ms at 3.35 TB/s, against 1.4 GFLOP (0.022 ms at 67 TFLOP/s).
+// dgrad's FMAs are half its bytes' time, so both have to overlap.
 //
 // wgrad design. The TPU kernel accumulates dW over a sequential grid; CUDA
 // blocks run in parallel, so the sum is split in two deterministic passes.
@@ -47,12 +48,36 @@
 // sums each weight's partials in block order. No atomics: dW is bitwise the
 // same from run to run.
 //
-// dgrad design (gather form, no atomics). Padded sample q = p + pad of
-// input g receives tap t = s u + (q mod s) from dy[., ., q / s - u]. A
-// thread owns one q / s = v, so its s samples (one per phase) read the same
-// n dy values for each u; the group's weights sit in shared memory as
-// (u, j, phase) float4s, so one broadcast 16-byte load serves a (u, j) for
-// all phases. Samples of the padding are not written: the kernel crops them.
+// dgrad design (gather form, no atomics). With s = 4 and pad a multiple of
+// 4 (k = 8 c + 1, pad = 4 c; the path's k = 41 has c = 5) the 4 samples
+// p = 4 m .. 4 m + 3 of one float4 of dx are the 4 phases of one padded
+// position v = m + c, so
+//
+//   dx4[b, g, m] = sum_{j < n, u < 2 c + 1} W4[g, j, u] dy[b, g n + j, m + c - u]
+//
+// with W4[g, j, u] = W[g n + j, 0, 4 u .. 4 u + 3] (zero past k): 4 n (2 c + 1)
+// products a sample, 44 at the path's layers, and dx has exactly L / 4 = L_out
+// float4s a row, so nothing of the padding is computed or cropped. The
+// fast kernel (dgrad_fast_kernel; s = 4, pad, L and L_out multiples of 4,
+// 16-byte aligned dy and dx) tiles this in registers: a lane owns DR = 8
+// consecutive float4s of one row and holds, per output j, the 24 dy values
+// around them (6 aligned float4 loads through L1, which serves the halo its
+// neighbours share; the next j's loaded while this one is multiplied), so
+// one broadcast float4 of W4 from shared memory feeds
+// 4 DR = 32 FMAs (the general kernel's: 4). A warp walks a run of segments
+// of 32 DR float4s, (g, b, segment) in that order, staging a group's W4
+// into its own shared memory only when g changes; the grid is whole waves
+// of at most two 256-thread blocks per SM, from the shapes alone. The
+// lanes' float4s pass through the warp's shared memory (a pad float4 every
+// 8 keeps both sides free of bank conflicts) and leave as 16-byte stores of
+// 32 consecutive float4s. Other geometries (s < 4, pad % 4 != 0, unaligned
+// operands: a dy that is a view at a 4-byte offset) take the general
+// kernel (dgrad_kernel): a thread owns one v, so its s samples (one per
+// phase) read the same n dy values for each u; the group's weights sit in
+// shared memory as (u, j, phase) float4s, so one broadcast 16-byte load
+// serves a (u, j) for all phases; samples of the padding are not written.
+// Each dx sample is summed by one thread in a fixed order: two calls give
+// the same bits.
 //
 // Takes: m = 1, 1 <= n <= 4, 1 <= s <= 4, odd k <= 63.
 // Layouts: x, dx (B, G, L); dy (B, G n, L_out); W, dW (G n, 1, k); float32.
@@ -73,6 +98,12 @@ constexpr int TARGET_BLOCKS = 528;           // wgrad: two waves of two
                                              // blocks per SM of an H100
 constexpr int VC = THREADS;                  // dgrad: v positions per block
 constexpr int U_MAX = MAX_K;                 // dgrad: taps per phase (s = 1)
+constexpr int DR = 8;                        // dgrad fast: float4s per lane
+constexpr int DSEG = 32 * DR;                // dgrad fast: float4s per warp
+                                             // segment
+constexpr int DU_MAX = 15;                   // dgrad fast: 2 c + 1, c <= 7
+constexpr int DG_TARGET_BLOCKS = 264;        // dgrad fast: one wave of two
+                                             // blocks per SM of an H100
 
 // wgrad: the split of one launch, from the shapes alone
 struct WgradPlan {
@@ -413,6 +444,96 @@ dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
   }
 }
 
+// dy[m0 - 8 .. m0 + 16) of one row as 6 aligned float4s, zero outside
+// [0, M)
+__device__ __forceinline__ void load_window(float (&win)[24],
+                                            const float* __restrict__ row,
+                                            int m0, int M) {
+#pragma unroll
+  for (int e = 0; e < 6; ++e) {
+    const int f = m0 - 8 + 4 * e;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (f >= 0 && f < M) v = __ldg(reinterpret_cast<const float4*>(row + f));
+    win[4 * e] = v.x;
+    win[4 * e + 1] = v.y;
+    win[4 * e + 2] = v.z;
+    win[4 * e + 3] = v.w;
+  }
+}
+
+// dx4[m] for the lanes' DR consecutive float4s of segments of (g, b) rows;
+// see the header. C = pad / 4.
+template <int C>
+__global__ void __launch_bounds__(THREADS, 2)
+dgrad_fast_kernel(const float* __restrict__ dy, const float* __restrict__ w,
+                  float* __restrict__ dx, int B, int G, int n, int M,
+                  int per_warp) {
+  constexpr int U = 2 * C + 1;
+  constexpr int K = 8 * C + 1;
+  __shared__ __align__(16) float4 wsm[WARPS][MAX_N * DU_MAX];
+  __shared__ __align__(16) float4 osm[WARPS][DSEG + DSEG / 8];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nseg = (M + DSEG - 1) / DSEG;
+  const long long total = (long long)G * B * nseg;
+  const long long first = ((long long)blockIdx.x * WARPS + warp) * per_warp;
+  const long long last = min(total, first + per_warp);
+  float* wf = reinterpret_cast<float*>(wsm[warp]);
+  int g_staged = -1;
+  for (long long sid = first; sid < last; ++sid) {
+    const int seg = (int)(sid % nseg);
+    const long long row = sid / nseg;
+    const int b = (int)(row % B), g = (int)(row / B);
+    if (g != g_staged) {          // W4 of group g as (j, u) float4s
+      __syncwarp();
+      for (int i = lane; i < MAX_N * U * 4; i += 32) {
+        const int ph = i % 4, u = (i / 4) % U, j = i / (4 * U);
+        const int t = 4 * u + ph;
+        wf[i] = j < n && t < K ? w[(size_t)(g * n + j) * K + t] : 0.f;
+      }
+      __syncwarp();
+      g_staged = g;
+    }
+    const int m0 = seg * DSEG + lane * DR;
+    float4 acc[DR];
+#pragma unroll
+    for (int i = 0; i < DR; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* dyr = dy + ((size_t)b * G + g) * n * M;
+    // dy[m0 - 8 .. m0 + 16) of output j: every m0 + i + c - u, i < DR,
+    // u < U, c <= 7; the window of j + 1 loads while j is multiplied
+    float win[2][24];
+    load_window(win[0], dyr, m0, M);
+#pragma unroll
+    for (int j = 0; j < MAX_N; ++j) {
+      if (j >= n) break;
+      if (j + 1 < n) load_window(win[(j + 1) & 1], dyr + (size_t)(j + 1) * M,
+                                 m0, M);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float4 wv = wsm[warp][j * U + u];
+#pragma unroll
+        for (int i = 0; i < DR; ++i) {
+          const float d = win[j & 1][i + C - u + 8];
+          acc[i].x = fmaf(wv.x, d, acc[i].x);
+          acc[i].y = fmaf(wv.y, d, acc[i].y);
+          acc[i].z = fmaf(wv.z, d, acc[i].z);
+          acc[i].w = fmaf(wv.w, d, acc[i].w);
+        }
+      }
+    }
+    // lane-major into shared memory, out as 32 consecutive float4s a store
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < DR; ++i) osm[warp][9 * lane + i] = acc[i];
+    __syncwarp();
+    float4* out = reinterpret_cast<float4*>(dx) + ((size_t)b * G + g) * M;
+#pragma unroll
+    for (int i = 0; i < DR; ++i) {
+      const int q = 32 * i + lane;
+      if (seg * DSEG + q < M) out[seg * DSEG + q] = osm[warp][q + q / 8];
+    }
+  }
+}
+
 cudaError_t check_geometry(int n, int k, int s, int pad, int L, int Lout) {
   if (n < 1 || n > MAX_N || s < 1 || s > MAX_S || k < 1 || k > MAX_K ||
       k % 2 == 0 || pad != (k - 1) / 2 || L < 1 ||
@@ -481,6 +602,30 @@ bool wgrad_fast(const WgradPlan& p, const float* x, const float* dy, int L,
          reinterpret_cast<uintptr_t>(dy) % 16 == 0;
 }
 
+template <int C>
+cudaError_t launch_dgrad_fast(const float* dy, const float* w, float* dx,
+                              int B, int G, int n, int M, cudaStream_t st) {
+  const long long total = (long long)G * B * ((M + DSEG - 1) / DSEG);
+  long long warps = (long long)DG_TARGET_BLOCKS * WARPS;
+  if (warps > total) warps = total;
+  const long long per_warp = (total + warps - 1) / warps;
+  const long long blocks = ((total + per_warp - 1) / per_warp + WARPS - 1)
+                           / WARPS;
+  dgrad_fast_kernel<C><<<(int)blocks, THREADS, 0, st>>>(
+      dy, w, dx, B, G, n, M, (int)per_warp);
+  return cudaGetLastError();
+}
+
+// The fast path's conditions: float4s of dx are the four phases of one v
+// (s = 4, pad and L multiples of 4), float4s of dy stay in one row (L_out a
+// multiple of 4), aligned operands.
+bool dgrad_fast(const float* dy, const float* dx, int L, int Lout, int s,
+                int pad) {
+  return s == 4 && pad % 4 == 0 && L % 4 == 0 && Lout % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -533,12 +678,24 @@ int grouped_conv_dgrad_forward(const float* dy, const float* w, float* dx,
   cudaError_t err = check_geometry(n, k, s, pad, L, Lout);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dgrad_fast(dy, dx, L, Lout, s, pad)) {
+    switch (pad / 4) {
+      case 0: return (int)launch_dgrad_fast<0>(dy, w, dx, B, G, n, Lout, st);
+      case 1: return (int)launch_dgrad_fast<1>(dy, w, dx, B, G, n, Lout, st);
+      case 2: return (int)launch_dgrad_fast<2>(dy, w, dx, B, G, n, Lout, st);
+      case 3: return (int)launch_dgrad_fast<3>(dy, w, dx, B, G, n, Lout, st);
+      case 4: return (int)launch_dgrad_fast<4>(dy, w, dx, B, G, n, Lout, st);
+      case 5: return (int)launch_dgrad_fast<5>(dy, w, dx, B, G, n, Lout, st);
+      case 6: return (int)launch_dgrad_fast<6>(dy, w, dx, B, G, n, Lout, st);
+      default: return (int)launch_dgrad_fast<7>(dy, w, dx, B, G, n, Lout, st);
+    }
+  }
   // v = q / s over the padded samples q = p + pad of p in [0, L)
   const int v_first = pad / s;
   const int v_last = (pad + L - 1) / s;
   const int n_vchunks = (v_last - v_first + VC) / VC;
-  dgrad_kernel<<<B * n_vchunks * G, THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+  dgrad_kernel<<<B * n_vchunks * G, THREADS, 0, st>>>(
       dy, w, dx, G, n, L, Lout, k, s, pad, v_first, n_vchunks);
   return (int)cudaGetLastError();
 }
