@@ -102,6 +102,31 @@ Phases, in order; any failure exits non-zero with its traceback:
    only in the vocoder run; the vocoder run's audio equals the same call on
    the CPU within 1e-3.
 
+14. taco2 training: configs/tacotron2_ljspeech.json as shipped (batch 64
+   at r 7, then 32 at r 4 and r 2; DDC; bfloat16 mixed precision;
+   phonemes) on the synthetic corpus through bin/train_tts, its gradual
+   schedule's step boundaries moved to 0, 3 and 6 (depth, not width), 7
+   epochs with eval epochs and the test sentences in the last. First the
+   first batch in bfloat16 against float32 (same weights and dropout
+   masks): losses within 5e-3 relative, the decoder and postnet outputs
+   apart by 2^-12 to 5e-2 of their norm; then every loss finite, every
+   trained tensor moved (the coarse decoder's stopnet aside: no loss reads
+   its logits), the tensors held fixed unmoved, every BatchNorm's running
+   statistics moved and still float32; step-time medians per r, loader
+   ms, peak memory. The
+   test sentences run B7 once per sentence (1 + text bucket launches) and
+   B8 for 80 steps (8 a step); the last checkpoint serves through the
+   Synthesizer with the Multiband-MelGAN vocoder (B7, B8, B1, B2 counted),
+   and its fast path matches the plain decode on the trained weights for
+   at least 16 steps (1e-4). Then the split of a step at r 7 and r 2:
+   forward with the loss, backward, optimizer (device and host-enqueue
+   time), and torch.profiler's device time by kernel.
+15. prewarm: phase 3's checkpoints served by the HTTP server in a process
+   of its own, without --prewarm, with it over the smallest text bucket
+   only (below the request's) and with it as shipped: seconds to
+   listening, the prewarm's seconds, the first and second requests'
+   latency.
+
 Phases 3 and 4 run Glow's encoder through B3 too: phase 3 asserts its
 launches (one call per sentence), phase 4 prints its share of glow_ms.
 
@@ -1751,6 +1776,372 @@ def cli_phase(dev, root: str):
     assert err < 1e-3, err
 
 
+# ---------------------------------------------------------------------------
+# phase 14: Tacotron2 training
+# ---------------------------------------------------------------------------
+
+# configs/tacotron2_ljspeech.json's gradual schedule with its step
+# boundaries (10,000 and 50,000) moved to 3 and 6: each r runs in a few
+# epochs of the 96-utterance corpus (depth, not width)
+TACO_TRAIN_BOUNDARIES = (0, 3, 6)
+TACO_TRAIN_EPOCHS = 7
+TACO_TEST_STEPS = 80       # the test sentences' decode budget (phase 10's)
+BF16_TOL = 5e-3            # first step's losses, bf16 against fp32, relative
+# the first step's decoder and postnet outputs, bf16 against fp32, as
+# ||bf16 - fp32|| / ||fp32||: above an eighth of bf16's unit roundoff
+# (2^-9), so a run that stayed float32 fails, and below 5e-2
+BF16_OUT_RANGE = (2.0 ** -12, 5e-2)
+
+
+def taco2_step_split(trainer, batch, r: int, reps: int = 3):
+    """Where one training step's time goes on `batch` at `r`: device time
+    between events and the host's enqueue time of the forward with the
+    loss, the backward and the optimizer; torch.profiler's device time by
+    kernel over one more step (busiest first), and the share of a step
+    (median between events) in which no kernel runs."""
+    from tts_tpu_torch.losses.tts_losses import tacotron_loss
+    from tts_tpu_torch.train.trainer_tts import forward
+
+    model, opt = trainer.model.train(), trainer.optimizer
+    model.set_r(r)
+    kw = dict(trainer.loss_kwargs, r=r)
+
+    def step(marks=None):
+        opt.zero_grad()
+        loss = tacotron_loss(forward(model, batch, trainer.dtype), batch,
+                             **kw)["loss"]
+        if marks:
+            marks()
+        loss.backward()
+        if marks:
+            marks()
+        opt.step()
+
+    split = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        host = []
+
+        def mark():
+            ev[len(host)].record()
+            host.append(time.perf_counter())
+        torch.cuda.synchronize()
+        mark()
+        step(mark)
+        mark()
+        torch.cuda.synchronize()
+        split.append(([ev[i].elapsed_time(ev[i + 1]) for i in range(3)],
+                      [1e3 * (host[i + 1] - host[i]) for i in range(3)]))
+    prof = kernel_profile(step)
+    busy_ms = sum(v["us"] for v in prof.values()) / 1e3
+    step_ms = float(np.median([sum(d) for d, _ in split]))
+    top = sorted(prof.items(), key=lambda kv: -kv[1]["us"])[:12]
+    parts = ("forward_and_loss", "backward", "optimizer")
+    return {"r": r, "batch": list(batch["mel"].shape),
+            "split_ms": {p: {"device": [d[i] for d, _ in split],
+                             "host_enqueue": [h[i] for _, h in split]}
+                         for i, p in enumerate(parts)},
+            "step_ms_median": step_ms,
+            "kernel_busy_ms_per_step": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
+            "kernels_launched": sum(v["launches"] for v in prof.values()),
+            "top_kernels_us": {k: v for k, v in top}}
+
+
+def taco2_training_phase(dev, root: str, card: str):
+    from tts_tpu_torch.bin.train_tts import main as train_main
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import (bucket_text_length, run_model,
+                                               text_to_seqvec)
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.losses.tts_losses import tacotron_loss
+    from tts_tpu_torch.models.layers import BatchNorm1d
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+    from tts_tpu_torch.train.checkpoint import latest_checkpoint
+    from tts_tpu_torch.train.trainer_tts import (TTSTrainer, batch_to_device,
+                                                 forward)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = write_corpus(os.path.join(root, "LJSpeech"))
+    c = load_config(os.path.join(here, "configs", "tacotron2_ljspeech.json"))
+    c["datasets"] = [{"name": "ljspeech", "path": corpus,
+                      "meta_file_train": "metadata.csv"}]
+    c["phoneme_cache_path"] = os.path.join(root, "phoneme_cache")
+    c["gradual_training"] = [[start] + list(entry[1:]) for start, entry in
+                             zip(TACO_TRAIN_BOUNDARIES,
+                                 c["gradual_training"])]
+    c["epochs"] = TACO_TRAIN_EPOCHS
+    c["test_delay_epochs"] = TACO_TRAIN_EPOCHS - 1
+    c["max_decoder_steps"] = TACO_TEST_STEPS
+    cfg_path = os.path.join(root, "tacotron2_train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+    assert c["mixed_precision"] and c["double_decoder_consistency"]
+
+    # the first batch's losses in bfloat16 against float32: one seeded
+    # model, the same dropout masks (drawn in float32 from one state)
+    probe = TTSTrainer(c, os.path.join(root, "probe"), device=dev)
+    init = {k: v.detach().clone() for k, v in
+            probe.model.state_dict().items()}
+    r0, bs0 = c["gradual_training"][0][1:3]
+    ds = probe.dataset(is_eval=False, r=r0)
+    batch = batch_to_device(next(iter(ds.batches(bs0, shuffle=True,
+                                                 seed=0))), dev)
+    state = probe.generator.get_state()
+    first, outs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        probe.generator.set_state(state)
+        with torch.no_grad():
+            outs[dtype] = forward(probe.model.train(), batch, dtype)
+            first[str(dtype)] = {k: float(v) for k, v in tacotron_loss(
+                outs[dtype], batch, **probe.loss_kwargs, r=r0).items()}
+    f32, b16 = first["torch.float32"], first["torch.bfloat16"]
+    rel = {k: abs(b16[k] - f32[k]) / abs(f32[k]) for k in f32}
+    out_rel = {k: float((outs[torch.bfloat16][k] - v).norm() / v.norm())
+               for k, v in outs[torch.float32].items()}
+    log({"taco2_first_step_losses": first, "bf16_vs_fp32_rel": rel,
+         "bf16_vs_fp32_outputs_rel_norm": out_rel,
+         "batch_shapes": {"text": list(batch["text"].shape),
+                          "mel": list(batch["mel"].shape)}})
+    assert all(v <= BF16_TOL for v in rel.values()), rel
+    lo, hi = BF16_OUT_RANGE
+    assert all(lo < out_rel[k] < hi for k in
+               ("decoder_outputs", "postnet_outputs")), out_rel
+    del probe, batch, outs
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_main(["--config_path", cfg_path, "--output_path",
+                          os.path.join(root, "runs")])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fit_launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = trainer.step_stats
+    rs = [s["r"] for s in stats]
+    assert set(rs) == {7, 4, 2}, rs
+    assert all(np.isfinite(v) for s in stats for v in s.values()), stats
+
+    # every trained tensor moved but the coarse decoder's stopnet, whose
+    # logits no loss reads (in tts_tpu neither); the tensors held fixed did
+    # not; the BatchNorm running statistics moved
+    moved, fixed = {}, []
+    for name, p in trainer.model.named_parameters():
+        delta = float((p.detach() - init[name]).abs().max())
+        if not p.requires_grad:
+            assert delta == 0.0, name
+            fixed.append(name)
+        elif not name.startswith("coarse_decoder.stopnet"):
+            moved[name] = delta
+    still = [n for n, d in moved.items() if d == 0.0]
+    assert not still, still
+    assert any(n.startswith("encoder.lstm.") for n in moved)
+    bn = [m for m in trainer.model.modules() if isinstance(m, BatchNorm1d)]
+    bn_names = [n for n, m in trainer.model.named_modules()
+                if isinstance(m, BatchNorm1d)]
+    bn_still = [n for n, m in zip(bn_names, bn) if torch.equal(
+        m.running_var, init[f"{n}.running_var"])]
+    assert bn and not bn_still, bn_still
+    assert all(m.running_mean.dtype == m.running_var.dtype == torch.float32
+               for m in bn), "BatchNorm statistics left float32"
+    per_r = {}
+    for r in sorted(set(rs), reverse=True):
+        times = [1e3 * s["step_time"] for s in stats if s["r"] == r]
+        per_r[r] = {"steps": len(times),
+                    "batch": [s["batch_size"] for s in stats
+                              if s["r"] == r][0],
+                    "ms_per_step": times,
+                    "ms_median_after_first": float(np.median(times[1:]))}
+    log({"training": "tacotron2 full width (configs/tacotron2_ljspeech."
+                     "json: DDC, bf16 mixed precision, phonemes)",
+         "schedule": c["gradual_training"], "epochs": c["epochs"],
+         "steps": len(stats), "r_per_step": rs, "wall_s": wall_s,
+         "per_r": per_r,
+         "loader_ms": [1e3 * s["loader_time"] for s in stats],
+         "losses": [s["loss"] for s in stats],
+         "params_moved": f"{len(moved)}/{len(moved)} trained "
+                         f"(+{len(fixed)} held fixed, coarse stopnet aside)",
+         "bn_buffers_moved": f"{len(bn)}/{len(bn)}",
+         "min_param_change": min(moved.values()),
+         "fit_launches": fit_launches, "peak_mem_gb": peak_gb,
+         "card": card})
+
+    # the test sentences at the trained r: B7 once per sentence (1 + the
+    # text bucket launches), B8 for the whole budget (8 a step)
+    sentences = c.get("test_sentences") or TTSTrainer.DEFAULT_TEST_SENTENCES
+    buckets = [bucket_text_length(len(text_to_seqvec(s, c)))
+               for s in sentences]
+    build.reset_launches()
+    audios = trainer.test_run()
+    test_launches = dict(build.LAUNCHES)
+    want = {BLK.KERNEL: sum(1 + b for b in buckets),
+            TDK.KERNEL: len(sentences) * TACO_TEST_STEPS
+            * TDK.LAUNCHES_PER_STEP}
+    log({"taco2_test_run_launches": test_launches, "sentences": len(sentences),
+         "text_buckets": buckets, "r": trainer.r,
+         "samples": [len(a) for a in audios.values()]})
+    for name, n in want.items():
+        assert test_launches.get(name, 0) == n, (name, test_launches, n)
+    assert all(np.isfinite(a).all() for a in audios.values())
+
+    # the last checkpoint served with the Multiband-MelGAN vocoder
+    voc = build_models(root)
+    ckpt = latest_checkpoint(trainer.output_path)
+    synth = Synthesizer(ckpt, cfg_path, voc["voc"], voc["vocoder_config"],
+                        device=dev)
+    assert synth.model.r == trainer.r
+    text = "The birch canoe slid on the smooth planks."
+    build.reset_launches()
+    wav = synth.tts(text)
+    served = dict(build.LAUNCHES)
+    bucket = bucket_text_length(len(text_to_seqvec(text, c)))
+    assert served.get(BLK.KERNEL, 0) == 1 + bucket, served
+    assert served.get(TDK.KERNEL, 0) == (TACO_TEST_STEPS
+                                         * TDK.LAUNCHES_PER_STEP), served
+    for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+        assert served.get(name, 0) > 0, f"{name} was not launched"
+    assert np.isfinite(wav).all()
+
+    # the fast path (B7, B8) against the plain decode on the trained weights
+    seq = torch.from_numpy(text_to_seqvec(text, c).astype(np.int64))[None]
+    seq = seq.to(dev)
+    # per step: the (stop-masked) frames, the stop logit and the alignment
+    fast = run_model(synth.model, seq, c)
+    plain = synth.model.inference(seq, max_decoder_steps=TACO_TEST_STEPS)
+    per_step = [
+        (fast["decoder_outputs"] - plain["decoder_outputs"]).abs()[0]
+        .reshape(TACO_TEST_STEPS, -1).amax(1),
+        (fast["stop_logits"] - plain["stop_logits"]).abs()[0],
+        (fast["alignments"] - plain["alignments"]).abs()[0].amax(1)]
+    per_step = torch.stack(per_step).amax(0).cpu().numpy()
+    bad = np.nonzero(per_step > 1e-4)[0]
+    apart = int(bad[0]) if len(bad) else None
+    log({"taco2_trained_served_launches": served, "samples": len(wav),
+         "fast_vs_plain_first_step_differs_by_1e-4": apart,
+         "fast_vs_plain_max_abs_16_steps": float(per_step[:16].max()),
+         "fast_vs_plain_max_abs_all_steps": float(per_step.max()),
+         "mel_lengths": [int(fast["mel_lengths"][0]),
+                         int(plain["mel_lengths"][0])]})
+    assert apart is None or apart >= 16, apart
+
+    # where a step's time goes, on the longest batch at the first and the
+    # last r of the schedule
+    splits = []
+    for _, r, bs in (c["gradual_training"][0], c["gradual_training"][-1]):
+        ds = trainer.dataset(is_eval=False, r=r)
+        batch = batch_to_device(ds.collate([ds[i] for i in range(
+            len(ds) - bs, len(ds))]), dev)
+        splits.append(taco2_step_split(trainer, batch, r))
+    log({"taco2_training_step_split": splits, "card": card})
+    return {"test_run": test_launches, "per_r": per_r}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the first request of a cold server, with and without --prewarm
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# the server with --prewarm cut to the smallest text bucket
+PREWARM_ONE_BUCKET = (
+    "import sys\n"
+    "from tts_tpu_torch.infer.synthesizer import Synthesizer\n"
+    "from tts_tpu_torch.server.server import main\n"
+    "full = Synthesizer.prewarm\n"
+    "Synthesizer.prewarm = lambda self: full(self, buckets=[32])\n"
+    "main(sys.argv[1:])\n")
+
+
+def prewarm_phase(root: str, card: str):
+    """Phase 3's checkpoints served by the server in a process of its own,
+    without --prewarm, with it over the smallest text bucket alone (the
+    request's is larger) and with it as shipped: the seconds to listening,
+    the prewarm's own, and the first and second requests' latency."""
+    import queue
+
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import (bucket_text_length,
+                                               text_to_seqvec)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = build_models(root)
+    text = "The birch canoe slid on the smooth planks."
+    bucket = bucket_text_length(len(text_to_seqvec(
+        text, load_config(paths["tts_config"]))))
+    assert bucket > 32, bucket
+    server = ["-m", "tts_tpu_torch.server.server"]
+    results = {}
+    for name, entry, flags in (
+            ("cold", server, []),
+            ("prewarm_bucket_32", ["-c", PREWARM_ONE_BUCKET], ["--prewarm"]),
+            ("prewarm", server, ["--prewarm"])):
+        port = _free_port()
+        cmd = [sys.executable, *entry,
+               "--tts_checkpoint", paths["tts"],
+               "--tts_config", paths["tts_config"],
+               "--vocoder_checkpoint", paths["voc"],
+               "--vocoder_config", paths["vocoder_config"],
+               "--port", str(port), *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines: "queue.Queue" = queue.Queue()
+
+        def read(stream=proc.stdout, sink=lines):
+            for line in stream:
+                sink.put(line)
+            sink.put(None)
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        out, prewarm_s = [], None
+        try:
+            while True:
+                line = lines.get(timeout=600)
+                assert line is not None, "server exited:\n" + "".join(out)
+                out.append(line)
+                m = re.search(r"Prewarmed .* in ([0-9.]+)s", line)
+                if m:
+                    prewarm_s = float(m.group(1))
+                if "Serving on" in line:
+                    break
+            listen_s = time.perf_counter() - t0
+            url = (f"http://127.0.0.1:{port}/api/tts?"
+                   + urllib.parse.urlencode({"text": text}))
+            ms = []
+            for _ in range(2):
+                t1 = time.perf_counter()
+                with urllib.request.urlopen(url, timeout=300) as r:
+                    assert r.status == 200 and r.read(4) == b"RIFF"
+                    r.read()
+                ms.append(1e3 * (time.perf_counter() - t1))
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            reader.join(timeout=30)
+        assert (prewarm_s is not None) == bool(flags), out
+        results[name] = {"boot_to_listening_s": listen_s,
+                         "prewarm_s": prewarm_s,
+                         "first_request_ms": ms[0],
+                         "second_request_ms": ms[1]}
+    log({"server_first_request": results, "text": text,
+         "request_bucket": bucket, "card": card})
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1792,6 +2183,10 @@ def main() -> int:
     glow_enc = glow_encoder_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as root:
         cli_phase(dev, root)
+    with tempfile.TemporaryDirectory() as root:
+        taco2_training_phase(dev, root, card)
+    with tempfile.TemporaryDirectory() as root:
+        prewarm_phase(root, card)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",

@@ -5,9 +5,9 @@ counterpart. The port imports nothing of ``tts_tpu`` (nor JAX or flax); the
 pure-Python modules it needs (text frontend, config loader, numpy audio) are
 copied. Every Pallas kernel of ``tts_tpu`` (on the ported paths: serving
 Glow-TTS or Tacotron2 + Multiband-MelGAN from the synthesis CLI or the
-server, training Glow-TTS, training Multiband-MelGAN against the multiscale
-MelGAN discriminator) has a hand-written CUDA kernel under ``ops/cuda/``
-beside a plain PyTorch version of the same function.
+server, training Glow-TTS, Tacotron2, and Multiband-MelGAN against the
+multiscale MelGAN discriminator) has a hand-written CUDA kernel under
+``ops/cuda/`` beside a plain PyTorch version of the same function.
 """
 
 from __future__ import annotations

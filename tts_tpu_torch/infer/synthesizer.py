@@ -32,7 +32,7 @@ from tts_tpu_torch import DeviceLike, resolve_device
 from tts_tpu_torch.audio import AudioProcessor
 from tts_tpu_torch.compat.from_jax import state_dict_from_tts_tpu
 from tts_tpu_torch.config import load_config
-from tts_tpu_torch.infer.synthesis import synthesis
+from tts_tpu_torch.infer.synthesis import TEXT_BUCKETS, synthesis
 from tts_tpu_torch.models.glow_tts import GlowTTS
 from tts_tpu_torch.models.registry import setup_model
 from tts_tpu_torch.models.tacotron2 import Tacotron2
@@ -158,3 +158,22 @@ class Synthesizer:
         print(f" > Processing time: {process_time:.3f}")
         print(f" > Real-time factor: {process_time / max(audio_time, 1e-6):.3f}")
         return out
+
+    def prewarm(self, buckets: Optional[List[int]] = None) -> float:
+        """Serve one sentence per text bucket (``buckets``, or every bucket
+        up to 256 symbols), so that the first request does not pay what a
+        process pays at first use: loading the kernels' libraries, cuBLAS
+        and cuDNN set-up, each bucket's first run. Every bucket and not one:
+        eager PyTorch compiles no program per shape, but on an H100 a
+        bucket's first run still costs ~40 ms more than its second after
+        another bucket has warmed the process, and the other five buckets
+        add ~0.04 s to the prewarm (``chip_smoke.py``'s prewarm phase).
+        Returns its seconds (the server's ``--prewarm``)."""
+        t0 = time.time()
+        todo = buckets or [b for b in TEXT_BUCKETS if b <= 256]
+        for b in todo:
+            self.tts("a" * max(1, b - 2) + ".")
+        seconds = time.time() - t0
+        print(f" > Prewarmed {len(todo)} text buckets in {seconds:.2f}s",
+              flush=True)
+        return seconds

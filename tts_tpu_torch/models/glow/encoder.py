@@ -11,8 +11,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from tts_tpu_torch.models.dropout import Dropout
 from tts_tpu_torch.models.glow.flows import ConvLayerNorm
-from tts_tpu_torch.models.glow.transformer import (Dropout, LayerNorm,
+from tts_tpu_torch.models.glow.transformer import (LayerNorm,
                                                    RelPosTransformer)
 from tts_tpu_torch.ops.masking import sequence_mask
 

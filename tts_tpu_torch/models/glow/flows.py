@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tts_tpu_torch.models.glow.transformer import Dropout, LayerNorm
+from tts_tpu_torch.models.dropout import Dropout
+from tts_tpu_torch.models.glow.transformer import LayerNorm
 from tts_tpu_torch.models.weight_norm import weight_norm
 
 

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tts_tpu_torch.models.dropout import Dropout
+
 
 class LayerNorm(nn.Module):
     """LayerNorm over the channel axis of (B, C, T), eps 1e-4
@@ -29,25 +31,6 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.transpose(1, 2), (x.shape[1],), self.gamma,
                          self.beta, self.eps)
         return y.transpose(1, 2)
-
-
-class Dropout(nn.Module):
-    """Dropout as flax computes it (keep with probability 1 - rate, kept
-    values divided by 1 - rate), drawing its mask from ``generator`` (an
-    explicit ``torch.Generator`` on the input's device; the default one when
-    None). Active only in ``train()`` mode."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-        self.generator: Optional[torch.Generator] = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
-                          dtype=x.dtype) < 1.0 - self.rate
-        return x * keep / (1.0 - self.rate)
 
 
 class RelativePositionMultiHeadAttention(nn.Module):

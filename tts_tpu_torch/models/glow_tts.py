@@ -20,10 +20,10 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from tts_tpu_torch.models.dropout import set_generator
 from tts_tpu_torch.models.glow.decoder import FlowDecoder
 from tts_tpu_torch.models.glow.encoder import GlowTTSEncoder
 from tts_tpu_torch.models.glow.flows import ActNorm
-from tts_tpu_torch.models.glow.transformer import Dropout
 from tts_tpu_torch.ops.glow_encoder import (fused_encoder_max_length,
                                             fused_glow_encoder,
                                             supports_fused_encoder)
@@ -63,9 +63,7 @@ class GlowTTS(nn.Module):
     def set_generator(self, generator: Optional[torch.Generator]) -> None:
         """Draw every dropout mask from ``generator`` (on the model's
         device)."""
-        for m in self.modules():
-            if isinstance(m, Dropout):
-                m.generator = generator
+        set_generator(self, generator)
 
     def store_inverse(self) -> None:
         """Cache every flow's inverse 1x1 weight; call after loading

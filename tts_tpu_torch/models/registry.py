@@ -58,6 +58,7 @@ def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
             forward_attn_mask=c.get("forward_attn_mask", False),
             attn_norm=c.get("attention_norm", "softmax"),
             windowing=c.get("windowing", False),
+            separate_stopnet=c.get("separate_stopnet", True),
             bidirectional_decoder=c.get("bidirectional_decoder", False),
             double_decoder_consistency=c.get("double_decoder_consistency",
                                              False),

@@ -1,7 +1,18 @@
-"""Tacotron2 at eval: conv + BiLSTM encoder, autoregressive decoder with
+"""Tacotron2: conv + BiLSTM encoder, autoregressive decoder with
 location-sensitive attention, postnet (≙ tts_tpu/models/tacotron2.py:
-``DecoderCell``, ``Tacotron2._encode``, ``_init_carry``, ``inference``), with
-Mozilla TTS's module names.
+``DecoderCell``, ``Tacotron2._encode``, ``_init_carry``, ``_run_decoder``,
+``__call__``, ``inference``), with Mozilla TTS's module names.
+
+``forward`` is the teacher-forced pass that training takes: the decoder
+runs one step per r frames of the target mel, fed a zero go-frame and then
+the last frame of each r-group, and with double decoder consistency a
+coarse decoder (r = ``ddc_r``) runs on the same mel, padded to a multiple
+of ``ddc_r``; a backward decoder, when configured, runs on the mel flipped
+in time. In ``train()`` mode the dropouts are tts_tpu's: 0.5 after each
+prenet layer and each ConvBN block, 0.1 on the attention LSTM's output
+(the query) and, drawn apart, on its cell state, 0.1 on the decoder LSTM's
+output, and 0.1 before the stop logit; every mask comes from the
+``torch.Generator`` that ``set_generator`` gives the model.
 
 ``inference`` is the plain path: a Python loop over a static step budget,
 as tts_tpu's scan (no early exit). As there, an item stays active until the
@@ -10,10 +21,9 @@ are masked, and ``mel_lengths`` counts the active steps times r. The
 serving fast path for the configuration it supports is
 ``infer/fast_decode.py::taco2_fused_inference`` (the B7 and B8 kernels).
 
-The coarse decoder of double decoder consistency and the backward decoder
-are built so that their checkpoints load; inference never runs them, as in
-tts_tpu. Not ported yet: the teacher-forced forward and training, GST,
-multi-speaker conditioning and streaming (``inference_truncated``).
+Inference never runs the coarse or the backward decoder, as in tts_tpu.
+Not ported yet: GST, multi-speaker conditioning and streaming
+(``inference_truncated``).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from tts_tpu_torch.models.dropout import Dropout, set_generator
 from tts_tpu_torch.models.layers import Encoder, Linear, Postnet, Prenet
 from tts_tpu_torch.ops.attention import init_attn
 from tts_tpu_torch.ops.masking import sequence_mask
@@ -32,10 +43,10 @@ Carry = Dict[str, object]
 
 class Decoder(nn.Module):
     """One decoder step: prenet -> attention LSTM -> attention -> decoder
-    LSTM -> frame projection and stop logit (≙ DecoderCell), at eval (the
-    query and decoder dropouts of training are not ported). The projection
+    LSTM -> frame projection and stop logit (≙ DecoderCell). The projection
     is sized by ``r_init`` and cut to the active ``r``; the stopnet sees all
-    ``r_init`` frames."""
+    ``r_init`` frames, detached from the decoder with ``separate_stopnet``
+    (the stopnet then trains on its own loss only)."""
 
     def __init__(self, in_features: int, n_mels: int = 80, r: int = 7,
                  r_init: int = 0, query_dim: int = 1024,
@@ -45,15 +56,17 @@ class Decoder(nn.Module):
                  use_forward_attn: bool = False,
                  use_transition_agent: bool = False,
                  forward_attn_mask: bool = False, attn_norm: str = "softmax",
-                 windowing: bool = False):
+                 windowing: bool = False, separate_stopnet: bool = True):
         super().__init__()
         self.n_mels = n_mels
+        self.separate_stopnet = separate_stopnet
         self.r = r
         self.r_init = max(r_init, r)
         self.query_dim = query_dim
         self.decoder_rnn_dim = decoder_rnn_dim
         self.prenet = Prenet(n_mels, prenet_type, prenet_dropout, bias=False)
         self.attention_rnn = nn.LSTMCell(256 + in_features, query_dim)
+        self.attention_rnn.bias_hh.requires_grad_(False)
         self.attention = init_attn(
             attn_type, query_dim=query_dim, embedding_dim=in_features,
             attn_dim=attn_dim, location_attention=location_attn,
@@ -63,11 +76,14 @@ class Decoder(nn.Module):
             windowing=windowing)
         self.decoder_rnn = nn.LSTMCell(query_dim + in_features,
                                        decoder_rnn_dim)
+        self.decoder_rnn.bias_hh.requires_grad_(False)
         self.linear_projection = Linear(decoder_rnn_dim + in_features,
                                         self.r_init * n_mels)
         self.stopnet = nn.Sequential(
-            nn.Dropout(0.1),
+            Dropout(0.1),
             Linear(decoder_rnn_dim + self.r_init * n_mels, 1))
+        self.query_dropout = Dropout(0.1)
+        self.decoder_dropout = Dropout(0.1)
 
     def init_carry(self, enc: torch.Tensor, mask: torch.Tensor) -> Carry:
         B, T, D = enc.shape
@@ -90,14 +106,22 @@ class Decoder(nn.Module):
         (B, T)))."""
         x = torch.cat([self.prenet(memory), carry["context"]], dim=-1)
         query, attn_c = self.attention_rnn(x, carry["attn_rnn"])
+        # the dropped query is carried as h; the cell state takes a mask
+        # of its own
+        query = self.query_dropout(query)
+        attn_c = self.query_dropout(attn_c)
         context, attn_state = self.attention(
             query, carry["inputs"], carry["processed_inputs"],
             carry["attn_state"], carry["mask"], use_windowing=use_windowing)
         dec_out, dec_c = self.decoder_rnn(
             torch.cat([query, context], dim=-1), carry["dec_rnn"])
+        dec_out = self.decoder_dropout(dec_out)
         frames_full = self.linear_projection(
             torch.cat([dec_out, context], dim=-1))
-        stop = self.stopnet(torch.cat([dec_out, frames_full], dim=-1))[:, 0]
+        stop_input = torch.cat([dec_out, frames_full], dim=-1)
+        if self.separate_stopnet:
+            stop_input = stop_input.detach()
+        stop = self.stopnet(stop_input)[:, 0]
         new = dict(carry)
         new.update(attn_rnn=(query, attn_c), dec_rnn=(dec_out, dec_c),
                    attn_state=attn_state, context=context)
@@ -116,7 +140,8 @@ class Tacotron2(nn.Module):
                  use_forward_attn: bool = False,
                  use_transition_agent: bool = False,
                  forward_attn_mask: bool = False, attn_norm: str = "softmax",
-                 windowing: bool = False, bidirectional_decoder: bool = False,
+                 windowing: bool = False, separate_stopnet: bool = True,
+                 bidirectional_decoder: bool = False,
                  double_decoder_consistency: bool = False, ddc_r: int = 6,
                  max_decoder_steps: int = 1000,
                  stop_threshold: float = 0.5):
@@ -138,7 +163,7 @@ class Tacotron2(nn.Module):
             use_forward_attn=use_forward_attn,
             use_transition_agent=use_transition_agent,
             forward_attn_mask=forward_attn_mask, attn_norm=attn_norm,
-            windowing=windowing)
+            windowing=windowing, separate_stopnet=separate_stopnet)
         self.decoder = Decoder(encoder_dim, r=r, r_init=r_init, **dec_kwargs)
         if double_decoder_consistency:
             self.coarse_decoder = Decoder(encoder_dim, r=ddc_r, **dec_kwargs)
@@ -152,12 +177,20 @@ class Tacotron2(nn.Module):
         return self.decoder.r
 
     def set_r(self, r: int) -> None:
-        """Serve at reduction factor ``r`` (a checkpoint's trained r): the
-        projection keeps its ``r_init`` frames and is cut to ``r``."""
+        """Run at reduction factor ``r`` (a gradual-training step's, or a
+        checkpoint's trained r): the projections keep their ``r_init``
+        frames and are cut to ``r``. The coarse decoder keeps ``ddc_r``."""
         if not 1 <= r <= self.decoder.r_init:
             raise ValueError(f"r {r} outside 1..r_init "
                              f"{self.decoder.r_init}")
         self.decoder.r = r
+        if hasattr(self, "backward_decoder"):
+            self.backward_decoder.r = r
+
+    def set_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Draw every dropout mask from ``generator`` (on the model's
+        device)."""
+        set_generator(self, generator)
 
     def encode(self, text: torch.Tensor, text_lengths: torch.Tensor,
                mask_pads: bool = False, packed_lstm=None
@@ -213,3 +246,56 @@ class Tacotron2(nn.Module):
                                                     self.n_mels)
         return self.finish(frames, torch.stack(stops, dim=1),
                            torch.stack(aligns, dim=1))
+
+    def teacher_forced(self, decoder: Decoder, enc: torch.Tensor,
+                       mask: torch.Tensor, mel: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``decoder`` over mel (B, T_mel, n_mels), T_mel a multiple of its
+        r, one step per r frames -> (frames (B, T_mel, n_mels), stop logits
+        (B, steps), alignments (B, steps, T))."""
+        B, T_mel, _ = mel.shape
+        r = decoder.r
+        steps = T_mel // r
+        memory = torch.cat([mel.new_zeros(B, 1, self.n_mels),
+                            mel[:, r - 1::r][:, :steps - 1]], dim=1)
+        carry = decoder.init_carry(enc, mask)
+        frames, stops, aligns = [], [], []
+        for t in range(steps):
+            carry, (fr, stop, align) = decoder(carry, memory[:, t])
+            frames.append(fr)
+            stops.append(stop)
+            aligns.append(align)
+        return (torch.stack(frames, dim=1).reshape(B, T_mel, self.n_mels),
+                torch.stack(stops, dim=1), torch.stack(aligns, dim=1))
+
+    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
+                mel: torch.Tensor, mel_lengths: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The teacher-forced pass (≙ ``Tacotron2.__call__``): text (B, T)
+        ids, mel (B, T_mel, n_mels) with T_mel a multiple of r ->
+        ``decoder_outputs`` and ``postnet_outputs`` (B, T_mel, n_mels),
+        ``alignments`` (B, T_mel / r, T), ``stop_logits`` (B, T_mel / r);
+        with double decoder consistency ``coarse_decoder_outputs`` and
+        ``coarse_alignments``, with the backward decoder
+        ``backward_decoder_outputs`` and ``backward_alignments``.
+        ``mel_lengths`` is not read (tts_tpu's signature)."""
+        enc, mask = self.encode(text, text_lengths)
+        frames, stops, aligns = self.teacher_forced(self.decoder, enc, mask,
+                                                    mel)
+        post = frames + self.postnet(frames.transpose(1, 2)).transpose(1, 2)
+        out = {"decoder_outputs": frames, "postnet_outputs": post,
+               "alignments": aligns, "stop_logits": stops}
+        T_mel = mel.shape[1]
+        if hasattr(self, "coarse_decoder"):
+            pad = -T_mel % self.coarse_decoder.r
+            frames_c, _, aligns_c = self.teacher_forced(
+                self.coarse_decoder, enc, mask,
+                torch.nn.functional.pad(mel, (0, 0, 0, pad)))
+            out["coarse_decoder_outputs"] = frames_c[:, :T_mel]
+            out["coarse_alignments"] = aligns_c
+        if hasattr(self, "backward_decoder"):
+            frames_b, _, aligns_b = self.teacher_forced(
+                self.backward_decoder, enc, mask, mel.flip(1))
+            out["backward_decoder_outputs"] = frames_b.flip(1)
+            out["backward_alignments"] = aligns_b
+        return out

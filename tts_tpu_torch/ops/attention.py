@@ -9,9 +9,12 @@ attention ``alpha`` (B, T) and ``u`` (B, 1). Variants: softmax or sigmoid
 normalisation, eval-time windowing, forward attention with the optional
 transition agent and forward mask. ``GravesAttention`` is not ported yet.
 
-``v`` keeps Mozilla's bias; tts_tpu has none (``use_v_bias=False``), so a
-tts_tpu tree maps to a zero bias. Under softmax a bias is a constant shift
-and changes nothing.
+``v`` keeps Mozilla's bias, held fixed; tts_tpu has none
+(``use_v_bias=False``), so a tts_tpu tree maps to a zero bias. Under
+softmax a bias is a constant shift and changes nothing.
+
+The location features take the energies' dtype, so bfloat16 parameters
+(mixed-precision training) run on the float32 alignment state.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ class LocationSensitiveAttention(nn.Module):
         self.query_layer = Linear(query_dim, attn_dim, bias=False)
         self.inputs_layer = Linear(embedding_dim, attn_dim, bias=False)
         self.v = Linear(attn_dim, 1, bias=True)
+        self.v.linear_layer.bias.requires_grad_(False)
         self.use_location = use_location
         if use_location:
             self.location_layer = LocationLayer(attn_dim, location_filters,
@@ -95,7 +99,8 @@ class LocationSensitiveAttention(nn.Module):
         x = self.query_layer(query)[:, None, :] + processed_inputs
         if self.use_location:
             attn_cat = torch.stack([state["attention_weights"],
-                                    state["attention_cum"]], dim=1)
+                                    state["attention_cum"]], dim=1
+                                   ).to(x.dtype)
             x = x + self.location_layer(attn_cat)
         return self.v(torch.tanh(x))[..., 0]
 

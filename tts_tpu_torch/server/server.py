@@ -9,6 +9,8 @@ Run on the card:
 
 Without a vocoder the server answers with Griffin-Lim audio, as tts_tpu's
 does. Checkpoints may be the port's or tts_tpu's (see ``Synthesizer``).
+``--prewarm`` serves one sentence per text bucket before it listens
+(``Synthesizer.prewarm``).
 """
 
 from __future__ import annotations
@@ -97,6 +99,10 @@ def main(argv=None):
     parser.add_argument("--port", type=int, default=5002)
     parser.add_argument("--device", default=None,
                         help="torch device; CUDA unless given (e.g. cpu)")
+    parser.add_argument("--prewarm", action="store_true",
+                        help="serve one sentence per text bucket before "
+                             "listening, so the first request does not pay "
+                             "the process's first-use costs")
     args = parser.parse_args(argv)
     if args.vocoder_checkpoint and not args.vocoder_config:
         parser.error("--vocoder_checkpoint needs --vocoder_config")
@@ -106,6 +112,8 @@ def main(argv=None):
     synth = Synthesizer(args.tts_checkpoint, args.tts_config,
                         args.vocoder_checkpoint, args.vocoder_config,
                         device=args.device)
+    if args.prewarm:
+        synth.prewarm()
     server = create_server(synth, args.port)
     print(f" > Serving on http://localhost:{args.port}", flush=True)
     server.serve_forever()

@@ -2,8 +2,8 @@
 ``load_checkpoint``, ``save_best_model``, ``latest_checkpoint``).
 
 A port checkpoint is ``torch.save({"model": state_dict, "optimizer":
-optimizer state, "step", "epoch", "model_loss", "config"})`` with plain
-types only, so it loads with ``torch.load(weights_only=True)``; the
+optimizer state, "step", "epoch", "model_loss", "config"[, "r"]})`` with
+plain types only (``"r"``: a Tacotron2 run's reduction factor), so it loads with ``torch.load(weights_only=True)``; the
 ``Synthesizer`` serves it as it is (it reads ``"model"``). The config is
 written beside it as ``config.json`` too.
 
@@ -37,7 +37,8 @@ def save_checkpoint(output_dir: str, *, model: torch.nn.Module,
                     optimizer: Any = None, step: int = 0, epoch: int = 0,
                     model_loss: Optional[float] = None,
                     config: Optional[Dict] = None,
-                    prefix: str = "checkpoint") -> str:
+                    prefix: str = "checkpoint",
+                    r: Optional[int] = None) -> str:
     """Writes ``<output_dir>/<prefix>_<step>.pt``; returns its path."""
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f"{prefix}_{step}.pt")
@@ -50,6 +51,8 @@ def save_checkpoint(output_dir: str, *, model: torch.nn.Module,
         "model_loss": model_loss,
         "config": _plain(config),
     }
+    if r is not None:
+        payload["r"] = r
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

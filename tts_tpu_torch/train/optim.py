@@ -1,5 +1,6 @@
 """Optimizer stack: gradient clip + RAdam + decoupled weight decay + Noam
-warmup, skipping non-finite steps (≙ tts_tpu/train/optim.py).
+warmup, skipping non-finite steps, and the gradual-training schedule
+(≙ tts_tpu/train/optim.py).
 
 tts_tpu builds it as an optax chain; this module computes what that chain
 computes, step for step, as a small optimizer of the port's own
@@ -22,7 +23,7 @@ the parameters' device; the optimizer's scalars are float32, as in optax.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,12 +68,15 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
 
 class RAdamW:
     """The optax chain of ``make_optimizer``, over ``model``'s parameters
-    (reads their ``.grad``; ``step`` updates them in place)."""
+    that require grad (reads their ``.grad``; ``step`` updates them in
+    place)."""
 
     def __init__(self, model: nn.Module, lr: Union[float, Schedule],
                  grad_clip: float = 5.0, weight_decay: float = 0.0):
-        self.names = [n for n, _ in model.named_parameters()]
-        self.params = [p for _, p in model.named_parameters()]
+        trained = [(n, p) for n, p in model.named_parameters()
+                   if p.requires_grad]
+        self.names = [n for n, _ in trained]
+        self.params = [p for _, p in trained]
         mask = decay_mask(model)
         self.decayed = [i for i, n in enumerate(self.names) if mask[n]]
         self.schedule = lr if callable(lr) else (lambda count, v=lr: v)
@@ -172,3 +176,17 @@ def make_optimizer(model: nn.Module, *, lr: float = 1e-4,
     schedule = noam_schedule(lr, warmup_steps) if use_noam else lr
     return RAdamW(model, schedule, grad_clip=grad_clip,
                   weight_decay=weight_decay)
+
+
+def gradual_training_schedule(global_step: int,
+                              schedule: Sequence[Sequence[int]]
+                              ) -> Tuple[int, int]:
+    """[[start_step, r, batch_size], ...] -> the (r, batch_size) of the last
+    entry whose start the step has reached (the first entry's before any).
+    One replica: tts_tpu scales the step by its replica count, which the
+    port's single-device trainer does not have."""
+    r, bs = schedule[0][1], schedule[0][2]
+    for entry in schedule:
+        if global_step >= entry[0]:
+            r, bs = entry[1], entry[2]
+    return r, bs

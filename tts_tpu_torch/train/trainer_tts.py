@@ -1,0 +1,285 @@
+"""Tacotron2 trainer (≙ tts_tpu/train/trainer_tts.py and the step of
+tts_tpu/train/state.py, on one device).
+
+Per epoch: the reduction factor r and the batch size from the
+gradual-training schedule (``Tacotron2.set_r``; a dataset per split and r),
+then per batch the teacher-forced forward (with the DDC coarse decoder and
+the backward decoder where configured), ``tacotron_loss``, backward and
+one optimizer step (``train_step``). The training step runs no TPU kernel
+in tts_tpu either: the encoder's LSTM runs as cuDNN on the card (the B7
+kernel has no backward). After each epoch, ``eval_epoch`` on the held-out
+split (dropout off, BatchNorm's running statistics, no grad), the best
+model by ``avg_postnet_loss``, and from ``test_delay_epochs`` on
+``test_run``: the test sentences through ``infer/synthesis.py``, so B7 and
+B8 run on the card, with Griffin-Lim audio logged to TensorBoard.
+``test_run`` draws no figures (tts_tpu's spectrogram and alignment plots
+need matplotlib, which the port does not depend on).
+
+``mixed_precision`` is tts_tpu's: bfloat16 copies of the parameters run the
+forward (``torch.func.functional_call``) on a bfloat16 mel; the outputs
+return to float32 before the loss, and the float32 masters take the
+gradients. BatchNorm's running statistics stay float32. Weights start from
+``config["seed"]`` (54321 by default); every dropout mask comes from the
+trainer's ``torch.Generator``. ``use_data_parallel`` on one device is a
+world of one: the single-device step runs. More devices, multi-speaker
+training and GST are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from tts_tpu_torch import DeviceLike, resolve_device
+from tts_tpu_torch.audio import AudioProcessor
+from tts_tpu_torch.config import check_config_tts
+from tts_tpu_torch.data import TTSDataset, load_meta_data
+from tts_tpu_torch.infer.synthesis import synthesis
+from tts_tpu_torch.losses.tts_losses import tacotron_loss
+from tts_tpu_torch.models.registry import setup_model
+from tts_tpu_torch.models.tacotron2 import Tacotron2
+from tts_tpu_torch.text import num_symbols
+from tts_tpu_torch.train import checkpoint as ckpt_io
+from tts_tpu_torch.train.gan import cast_params
+from tts_tpu_torch.train.optim import (RAdamW, gradual_training_schedule,
+                                       make_optimizer)
+from tts_tpu_torch.utils.generic import KeepAverage, StepTimer
+from tts_tpu_torch.utils.loggers import ConsoleLogger, TensorboardLogger
+
+Batch = Dict[str, torch.Tensor]
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
+                    ) -> Batch:
+    """A collated numpy batch -> tensors on ``device``; the mel stays
+    time-major (B, T, n_mels), as the model's outputs."""
+    out = {key: torch.from_numpy(batch[key]).to(device)
+           for key in ("text_lengths", "mel", "mel_lengths", "stop_targets")}
+    out["text"] = torch.from_numpy(batch["text"]).long().to(device)
+    return out
+
+
+def forward(model: Tacotron2, batch: Batch,
+            dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The teacher-forced outputs in float32; with ``dtype`` bfloat16, from
+    bfloat16 copies of the parameters on a bfloat16 mel."""
+    args = (batch["text"], batch["text_lengths"], batch["mel"],
+            batch["mel_lengths"])
+    if dtype == torch.float32:
+        return model(*args)
+    out = functional_call(model, cast_params(model, dtype, frozen=False),
+                          (*args[:2], args[2].to(dtype), args[3]))
+    return {key: value.float() for key, value in out.items()}
+
+
+def train_step(model: Tacotron2, optimizer: RAdamW, batch: Batch,
+               loss_kwargs: Dict[str, Any],
+               dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+    """Forward, loss, backward and one optimizer step on a device batch, in
+    the model's current mode and r. Returns the losses before the update."""
+    optimizer.zero_grad()
+    losses = tacotron_loss(forward(model, batch, dtype), batch,
+                           **loss_kwargs)
+    losses["loss"].backward()
+    optimizer.step()
+    values = torch.stack([v.detach() for v in losses.values()]).tolist()
+    return dict(zip(losses.keys(), values))
+
+
+class TTSTrainer:
+    DEFAULT_TEST_SENTENCES = [
+        "It took me quite a long time to develop a voice, and now that I "
+        "have it I'm not going to be silent.",
+        "Be a voice, not an echo.",
+    ]
+
+    def __init__(self, config: Dict[str, Any], output_path: str,
+                 device: DeviceLike = None):
+        check_config_tts(config)
+        if config["model"].lower() != "tacotron2":
+            raise NotImplementedError(f"training {config['model']} with this "
+                                      f"trainer is not ported yet")
+        if config.get("use_speaker_embedding", False):
+            raise NotImplementedError("multi-speaker Tacotron2 training is "
+                                      "not ported yet")
+        self.device = resolve_device(device)
+        if config.get("use_data_parallel", False):
+            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
+                     else 1)
+            if n_dev > 1:
+                raise NotImplementedError(
+                    f"data-parallel Tacotron2 training over {n_dev} devices "
+                    f"is not ported yet")
+            print(" > use_data_parallel: a world of one device, the "
+                  "single-device step runs")
+        self.c = config
+        self.output_path = output_path
+        os.makedirs(output_path, exist_ok=True)
+        self.ap = AudioProcessor(**config["audio"])
+        self.meta_train, self.meta_eval = load_meta_data(config["datasets"])
+
+        seed = config.get("seed", 54321)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = setup_model(num_symbols(config.get("use_phonemes",
+                                                       False)), 1, config)
+        self.model = model.to(self.device)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.model.set_generator(self.generator)
+        self.r = self.model.r
+        self.optimizer = make_optimizer(
+            self.model,
+            lr=config.get("lr", 1e-4),
+            grad_clip=config.get("grad_clip", 5.0),
+            weight_decay=config.get("wd", 0.0),
+            use_noam=config.get("noam_schedule", False),
+            warmup_steps=config.get("warmup_steps", 4000))
+        self.loss_kwargs = dict(
+            loss_masking=config.get("loss_masking", True),
+            seq_len_norm=config.get("seq_len_norm", False),
+            decoder_alpha=config.get("decoder_loss_alpha", 0.25),
+            postnet_alpha=config.get("postnet_loss_alpha", 0.25),
+            ga_alpha=config.get("ga_alpha", 0.0),
+            decoder_diff_spec_alpha=config.get("decoder_diff_spec_alpha",
+                                               0.0),
+            postnet_diff_spec_alpha=config.get("postnet_diff_spec_alpha",
+                                               0.0))
+        self.dtype = (torch.bfloat16 if config.get("mixed_precision", False)
+                      else torch.float32)
+
+        self.console = ConsoleLogger()
+        self.tb = TensorboardLogger(output_path, config["model"])
+        self.global_step = 0
+        self.epoch = 0
+        self.best_loss = float("inf")
+        self.step_stats: List[Dict[str, float]] = []
+        self._datasets: Dict[tuple, TTSDataset] = {}
+
+    def dataset(self, is_eval: bool, r: int) -> TTSDataset:
+        """The split's dataset at reduction factor ``r``, built once."""
+        key = (is_eval, r)
+        if key not in self._datasets:
+            c = self.c
+            self._datasets[key] = TTSDataset(
+                self.ap, self.meta_eval if is_eval else self.meta_train,
+                outputs_per_step=r,
+                text_cleaner=c.get("text_cleaner", "english_cleaners"),
+                min_seq_len=0 if is_eval else c.get("min_seq_len", 0),
+                max_seq_len=(float("inf") if is_eval
+                             else c.get("max_seq_len", float("inf"))),
+                use_phonemes=c.get("use_phonemes", False),
+                phoneme_cache_path=c.get("phoneme_cache_path"),
+                phoneme_language=c.get("phoneme_language", "en-us"),
+                enable_eos_bos=c.get("enable_eos_bos_chars", False))
+        return self._datasets[key]
+
+    def train_epoch(self) -> Dict[str, float]:
+        c = self.c
+        batch_size = c["batch_size"]
+        if c.get("gradual_training"):
+            self.r, batch_size = gradual_training_schedule(
+                self.global_step, c["gradual_training"])
+        self.model.set_r(self.r)
+        ds = self.dataset(is_eval=False, r=self.r)
+        loss_kwargs = dict(self.loss_kwargs, r=self.r)
+        self.model.train()
+        keep = KeepAverage()
+        start = time.time()
+        timer = StepTimer()
+        self.console.print_train_start()
+        n_batches = len(ds) // batch_size
+        for i, batch in enumerate(ds.batches(batch_size, shuffle=True,
+                                             seed=self.epoch)):
+            loader_time = timer.lap()
+            losses = train_step(self.model, self.optimizer,
+                                batch_to_device(batch, self.device),
+                                loss_kwargs, self.dtype)
+            losses["step_time"] = timer.lap()
+            losses["loader_time"] = loader_time
+            keep.update_values({f"avg_{k}": v for k, v in losses.items()})
+            self.step_stats.append(dict(losses, r=self.r,
+                                        batch_size=batch_size))
+            self.global_step += 1
+            if self.global_step % c.get("print_step", 25) == 0:
+                self.console.print_train_step(n_batches, i, self.global_step,
+                                              losses, keep.avg_values)
+            if (self.global_step % c.get("save_step", 10000) == 0
+                    and c.get("checkpoint", True)):
+                self.save_checkpoint()
+            self.tb.tb_train_iter_stats(self.global_step, losses)
+        self.console.print_train_epoch_end(self.global_step, self.epoch,
+                                           time.time() - start,
+                                           keep.avg_values)
+        return keep.avg_values
+
+    @torch.no_grad()
+    def eval_epoch(self) -> Dict[str, float]:
+        """The losses on the held-out split, at the current r, in float32."""
+        ds = self.dataset(is_eval=True, r=self.r)
+        self.model.eval()
+        keep = KeepAverage()
+        self.console.print_eval_start()
+        bs = min(self.c.get("eval_batch_size", 16), max(len(ds), 1))
+        for batch in ds.batches(bs):
+            db = batch_to_device(batch, self.device)
+            losses = tacotron_loss(forward(self.model, db), db,
+                                   **self.loss_kwargs, r=self.r)
+            values = torch.stack(list(losses.values())).tolist()
+            keep.update_values({f"avg_{k}": v
+                                for k, v in zip(losses.keys(), values)})
+        self.console.print_epoch_end(self.epoch, keep.avg_values)
+        self.tb.tb_eval_stats(self.global_step, keep.avg_values)
+        return keep.avg_values
+
+    def test_run(self) -> Dict[str, np.ndarray]:
+        """The test sentences (the config's, or tts_tpu's two) synthesized
+        at the current r and turned to audio by Griffin-Lim."""
+        self.model.eval()
+        sentences = (self.c.get("test_sentences")
+                     or self.DEFAULT_TEST_SENTENCES)
+        audios = {}
+        for i, sentence in enumerate(sentences):
+            result = synthesis(self.model, sentence, self.c, self.device,
+                               ap=self.ap, use_griffin_lim=True)
+            audios[f"test_{i}"] = result["wav"]
+        self.tb.tb_eval_audios(self.global_step, audios, self.ap.sample_rate)
+        return audios
+
+    def fit(self) -> None:
+        c = self.c
+        for self.epoch in range(self.epoch, c["epochs"]):
+            self.console.print_epoch_start(self.epoch, c["epochs"])
+            self.train_epoch()
+            if c.get("run_eval", True):
+                stats = self.eval_epoch()
+                self.best_loss = ckpt_io.save_best_model(
+                    stats.get("avg_postnet_loss", float("inf")),
+                    self.best_loss, self.output_path, model=self.model,
+                    optimizer=self.optimizer, step=self.global_step,
+                    epoch=self.epoch, r=self.r)
+            if (c.get("run_test_sentences", False)
+                    and self.epoch >= c.get("test_delay_epochs", 0)):
+                self.test_run()
+        if c.get("checkpoint", True):
+            self.save_checkpoint()
+        self.tb.close()
+
+    def save_checkpoint(self) -> str:
+        return ckpt_io.save_checkpoint(
+            self.output_path, model=self.model, optimizer=self.optimizer,
+            step=self.global_step, epoch=self.epoch, config=self.c, r=self.r)
+
+    def restore(self, path: str) -> None:
+        ckpt = ckpt_io.load_checkpoint(path)
+        self.model.load_state_dict(ckpt["model"])
+        if ckpt.get("optimizer") is not None:
+            self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.global_step = ckpt.get("step", 0)
+        self.epoch = ckpt.get("epoch", 0)
+        self.r = ckpt.get("r") or self.r
+        self.model.set_r(self.r)

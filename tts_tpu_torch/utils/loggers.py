@@ -4,6 +4,7 @@ logger writes nothing."""
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, Optional
 
 
@@ -25,9 +26,24 @@ def _tcolor_delta(value: float, prev: Optional[float]) -> str:
 class ConsoleLogger:
     def __init__(self):
         self.old_train_loss_dict: Optional[Dict[str, float]] = None
+        self.old_eval_loss_dict: Optional[Dict[str, float]] = None
 
     def print_epoch_start(self, epoch: int, max_epoch: int) -> None:
         print(f"\n{_Colors.BOLD} > EPOCH: {epoch}/{max_epoch}{_Colors.END}")
+
+    def print_train_start(self) -> None:
+        now = datetime.datetime.now().strftime("%H:%M:%S")
+        print(f"\n{_Colors.BOLD} > TRAINING ({now}) {_Colors.END}")
+
+    def print_train_step(self, batch_steps: int, step: int, global_step: int,
+                         loss_dict: Dict[str, float],
+                         avg_loss_dict: Dict[str, float]) -> None:
+        print(f"\n   --> STEP: {step}/{batch_steps} -- GLOBAL_STEP: "
+              f"{global_step}")
+        for key, value in loss_dict.items():
+            avg = avg_loss_dict.get(f"avg_{key}")
+            extra = f" ({avg:.5f})" if avg is not None else ""
+            print(f"     | > {key}: {float(value):.5f}{extra}")
 
     def print_train_epoch_end(self, global_step: int, epoch: int,
                               epoch_time: float,
@@ -38,6 +54,17 @@ class ConsoleLogger:
             prev = (self.old_train_loss_dict or {}).get(key)
             print(f"     | > {key}: {_tcolor_delta(float(value), prev)}")
         self.old_train_loss_dict = {k: float(v) for k, v in avg_loss_dict.items()}
+
+    def print_eval_start(self) -> None:
+        print(f"\n{_Colors.BOLD} > EVALUATION {_Colors.END}\n")
+
+    def print_epoch_end(self, epoch: int,
+                        avg_loss_dict: Dict[str, float]) -> None:
+        print("\n  --> EVAL PERFORMANCE")
+        for key, value in avg_loss_dict.items():
+            prev = (self.old_eval_loss_dict or {}).get(key)
+            print(f"     | > {key}: {_tcolor_delta(float(value), prev)}")
+        self.old_eval_loss_dict = {k: float(v) for k, v in avg_loss_dict.items()}
 
 
 class TensorboardLogger:
@@ -59,6 +86,27 @@ class TensorboardLogger:
 
     def tb_train_iter_stats(self, step: int, stats: Dict) -> None:
         self._scalars(f"{self.model_name}_TrainIterStats", stats, step)
+
+    def tb_eval_stats(self, step: int, stats: Dict) -> None:
+        self._scalars(f"{self.model_name}_EvalStats", stats, step)
+
+    def tb_eval_audios(self, step: int, audios: Dict,
+                       sample_rate: int) -> None:
+        """Mono waveforms as audio summaries, encoded as 16-bit WAV by the
+        port (tensorboardX's ``add_audio`` needs soundfile)."""
+        if self.writer is None:
+            return
+        from tensorboardX.proto.summary_pb2 import Summary
+
+        from tts_tpu_torch.audio.processor import wav_to_bytes
+        for key, wav in audios.items():
+            audio = Summary.Audio(
+                sample_rate=sample_rate, num_channels=1,
+                length_frames=len(wav), content_type="audio/wav",
+                encoded_audio_string=wav_to_bytes(wav, sample_rate))
+            tag = f"{self.model_name}_EvalAudios/{key}"
+            self.writer._get_file_writer().add_summary(
+                Summary(value=[Summary.Value(tag=tag, audio=audio)]), step)
 
     def close(self) -> None:
         if self.writer is not None:
