@@ -41,7 +41,8 @@ Phases, in order; any failure exits non-zero with its traceback:
    optimizer).
 7. gan kernels: the STFT-magnitude kernel at the 6 resolutions of the GAN
    losses on full-width shapes (full band on 64 x 16,384 samples, subbands
-   on 256 x 4,096), and the grouped-conv weight- and input-gradient kernels
+   on 256 x 4,096; full band again on ParallelWaveGAN's 6 x 25,600, whose
+   few row blocks end in ragged tiles), and the grouped-conv weight- and input-gradient kernels
    at the discriminator's three kernel layers of scale 0 at batch 64, each
    against its plain version (dW within 1e-4 of its largest magnitude, dx
    within 1e-5 absolute, each bitwise equal across two calls), with times, a
@@ -126,6 +127,35 @@ Phases, in order; any failure exits non-zero with its traceback:
    only (below the request's) and with it as shipped: seconds to
    listening, the prewarm's seconds, the first and second requests'
    latency.
+
+16. pwgan training: configs/parallel_wavegan.json as shipped (30 blocks in
+   3 stacks, upsample 4-4-4-4, the 10-layer discriminator, STFT and MSE-GAN
+   losses, float32, batch 6 x 25,600 samples) on a 46-utterance synthetic
+   corpus (36 trained: 6 steps), the discriminator from step 2 (depth, not
+   width); then 2 steps against the random window discriminators (tts_tpu's
+   windows, 512-8,192) on 22 utterances, the discriminator from step 0.
+   Through bin/train_vocoder; B5 must launch 6 times a step (3 resolutions
+   x y_hat and y; no subbands), B6 never; every loss finite, both networks'
+   parameters moved. Prints step times, loader ms, peak memory, and one
+   step with the discriminator profiled: device busy ms and idle share.
+17. istft training: configs/istft_melgan.json as shipped (base 512,
+   upsample 8-8, head n_fft 16 / hop 4, bf16 mixed precision, batch 64 x
+   16,384) against the multiscale MelGAN discriminator on the 96-utterance
+   corpus, 4 epochs of one step, the discriminator from step 2. First the
+   first batch's generator losses in bfloat16 against float32 on the seeded
+   weights (spectral convergence and adversarial terms within 2e-2
+   relative, every term finite; the waveforms apart by 2^-12 to 0.2 of
+   their norm). B5 6 launches a step, B6 27 input and 18 weight gradients a
+   step with the discriminator (phase 8's counts); the same prints as 16.
+18. vocoder serving: phase 3's Glow-TTS in front of the generators of 16
+   and 17 (their last checkpoints, weight norm folded, each through its
+   module's inference; PWGAN's noise from a CPU generator seeded 0 a
+   sentence): 3 requests over HTTP (first and warm latency), B3 launched
+   once a sentence and no B1/B2; the vocoder on the card against the CPU on
+   the same mel within 1e-3; the synthesis CLI once per vocoder; then each
+   generator alone at phase 2's geometry (batch 8, 248 + 4 frames): ms,
+   audio-seconds per second, and its fp32 bound from the convolutions'
+   FLOPs in that call.
 
 Phases 3 and 4 run Glow's encoder through B3 too: phase 3 asserts its
 launches (one call per sentence), phase 4 prints its share of glow_ms.
@@ -709,11 +739,11 @@ N_UTTERANCES = 96
 SAMPLE_RATE = 22050
 
 
-def write_corpus(root: str) -> str:
-    """LJSpeech layout: metadata.csv (id|text|text) and wavs/*.wav. Texts of
-    25-185 characters cut from the sentences at word boundaries; audio a
-    gliding harmonic tone plus noise, len(text) / 15 seconds within
-    [1.5, 10]."""
+def write_corpus(root: str, n: int = N_UTTERANCES) -> str:
+    """LJSpeech layout: metadata.csv (id|text|text) and wavs/*.wav, ``n``
+    utterances. Texts of 25-185 characters cut from the sentences at word
+    boundaries; audio a gliding harmonic tone plus noise, len(text) / 15
+    seconds within [1.5, 10]."""
     from tts_tpu_torch.audio.processor import write_wav
 
     rng = np.random.default_rng(SEED)
@@ -721,7 +751,7 @@ def write_corpus(root: str) -> str:
     wav_dir = os.path.join(root, "wavs")
     os.makedirs(wav_dir, exist_ok=True)
     lines = []
-    for i, target in enumerate(np.linspace(25, 185, N_UTTERANCES)):
+    for i, target in enumerate(np.linspace(25, 185, n)):
         start, text = (7 * i) % len(words), ""
         while len(text) < target - 4:
             text = (text + " " + words[start % len(words)]).strip()
@@ -878,6 +908,7 @@ def training_phase(dev, root: str, card: str):
 # ---------------------------------------------------------------------------
 
 GAN_BATCH, GAN_SEQ = 64, 16384          # configs/multiband_melgan.json
+PWGAN_BATCH, PWGAN_SEQ = 6, 25600       # configs/parallel_wavegan.json
 FULLBAND = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 SUBBAND = ((384, 30, 150), (683, 60, 300), (171, 10, 60))
 # (B, C_in, L, C_out, groups) of down_0..2 at scale 0, kernel 41, stride 4
@@ -895,14 +926,10 @@ def gan_kernel_phase(dev):
     g = torch.Generator(dev).manual_seed(SEED)
     results = {}
 
-    # B5: one signal's six resolutions (the step runs each twice: y_hat, y)
-    res = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nb=0, fl=0.0)
-    signals = {"full": 0.3 * torch.randn(GAN_BATCH, GAN_SEQ, device=dev,
-                                         generator=g),
-               "sub": 0.3 * torch.randn(GAN_BATCH * 4, GAN_SEQ // 4,
-                                        device=dev, generator=g)}
-    for band, resolutions in (("full", FULLBAND), ("sub", SUBBAND)):
-        y = signals[band]
+    def stft_geometry(label, y, resolutions, res):
+        """B5 against its plain version on ``y``'s frames at each
+        resolution; logs each and adds its times, bytes and operations to
+        ``res``."""
         for n_fft, hop, win in resolutions:
             fr = S.frames(y, n_fft, hop).reshape(-1, n_fft).contiguous()
             wr, wi = S.dft_banks(n_fft, win, dev)
@@ -928,7 +955,8 @@ def gan_kernel_phase(dev):
             fl = 2.5 * N * K * math.log2(K) + 4.0 * N * F_
             G = S.fold_size(K)
             tf32_fl = 3 * (4 if S.radix2(K) else 2) * 2.0 * N * G * G
-            log({"kernel": SK.KERNEL, "n_fft": n_fft, "hop": hop, "win": win,
+            log({"kernel": SK.KERNEL, "geometry": label, "n_fft": n_fft,
+                 "hop": hop, "win": win, "signal": list(y.shape),
                  "frames": N, "bins": F_, "kernel_ms": ms,
                  "plain_ms": plain_ms, "library_ms": library_ms,
                  "bound_ms": bound_ms(nb, fl)[0], "bound_mb": nb / 1e6,
@@ -940,6 +968,30 @@ def gan_kernel_phase(dev):
                              ("library_ms", library_ms), ("nb", nb),
                              ("fl", fl)):
                 res[key] += val
+
+    # B5: one signal's six resolutions at MB-MelGAN's batch (the step runs
+    # each twice: y_hat, y); the iSTFT MelGAN's full band is the same
+    res = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nb=0, fl=0.0)
+    signals = {"full": 0.3 * torch.randn(GAN_BATCH, GAN_SEQ, device=dev,
+                                         generator=g),
+               "sub": 0.3 * torch.randn(GAN_BATCH * 4, GAN_SEQ // 4,
+                                        device=dev, generator=g)}
+    for band, resolutions in (("full", FULLBAND), ("sub", SUBBAND)):
+        stft_geometry(f"multiband_melgan_{band}", signals[band], resolutions,
+                      res)
+    # ...and the three full-band ones at ParallelWaveGAN's batch: few
+    # blocks of rows, each with a ragged last tile. The kernels line keeps
+    # the sum above; the largest error is over both geometries
+    pw = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nb=0, fl=0.0)
+    stft_geometry("parallel_wavegan", 0.3 * torch.randn(
+        PWGAN_BATCH, PWGAN_SEQ, device=dev, generator=g), FULLBAND, pw)
+    pw["bound"] = bound_ms(pw.pop("nb"), pw.pop("fl"))
+    log({"kernel": SK.KERNEL, "summed_over": "parallel_wavegan's three "
+         "full-band resolutions, one launch each", "kernel_ms": pw["ms"],
+         "plain_ms": pw["plain_ms"], "library_ms": pw["library_ms"],
+         "bound_ms": pw["bound"][0], "bound_by": pw["bound"][1],
+         "max_abs_err": pw["err"]})
+    res["err"] = max(res["err"], pw["err"])
     res["bound"] = bound_ms(res.pop("nb"), res.pop("fl"))
     results[SK.KERNEL] = res
 
@@ -2142,6 +2194,364 @@ def prewarm_phase(root: str, card: str):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: ParallelWaveGAN and iSTFT MelGAN training
+# ---------------------------------------------------------------------------
+
+VOC_DISC_START = 2          # steps_to_start_discriminator (200,000 shipped)
+PWGAN_UTTERANCES = 46       # 10 held out, 36 = 6 steps of batch 6
+RWD_UTTERANCES = 22         # 10 held out, 12 = 2 steps of batch 6
+ISTFT_EPOCHS = 4            # 86 training items at batch 64: a step an epoch
+# the first batch's generator losses, bf16 against fp32, relative: the
+# spectral convergence and adversarial terms within GAN_BF16_TOL; the
+# log-magnitude term (and the total that holds it) is printed only: on a
+# seeded generator's output it is decided by |STFT| bins at rounding level
+# (tests/test_torch_port_gan_train.py), and bf16 moved it 13 % in a CPU
+# rehearsal. The waveform ||bf16 - fp32|| / ||fp32|| above an eighth of
+# bf16's unit roundoff (so a run that stayed float32 fails) and below 0.2
+# (5.7e-2 in the CPU rehearsal at full width; 3e-3 at base 32, where the
+# CPU tests hold the port's bf16 run to tts_tpu's)
+GAN_BF16_TOL = 2e-2
+GAN_BF16_HELD = ("G_stft_loss_sc", "G_mse_fake_loss")
+GAN_BF16_OUT_RANGE = (2.0 ** -12, 0.2)
+
+
+def conv_flops(module, *inputs) -> float:
+    """Multiply-adds x 2 of every Conv1d / Conv2d / ConvTranspose1d /
+    Linear in one call of ``module`` on ``inputs``, from the shapes that
+    call gives them."""
+    total = [0.0]
+
+    def hook(m, args, out):
+        if isinstance(m, torch.nn.ConvTranspose1d):
+            per = m.out_channels // m.groups * m.kernel_size[0]
+            total[0] += 2.0 * args[0].numel() * per
+        elif isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d)):
+            per = m.in_channels // m.groups * math.prod(m.kernel_size)
+            total[0] += 2.0 * out.numel() * per
+        elif isinstance(m, torch.nn.Linear):
+            total[0] += 2.0 * out.numel() * m.in_features
+    kinds = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.ConvTranspose1d,
+             torch.nn.Linear)
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, kinds)]
+    try:
+        with torch.no_grad():
+            module(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def gan_step_idle(trainer, reps: int = 3) -> dict:
+    """One generator + discriminator step on a fixed batch pair: device
+    time between events (median of ``reps``), torch.profiler's device time
+    by kernel over one more step, and the share of the step in which no
+    kernel runs."""
+    from tts_tpu_torch.train.trainer_vocoder import batch_to_device
+
+    ds, step, dev = trainer.dataset, trainer.step, trainer.device
+    items = list(range(trainer.c["batch_size"]))
+    bG = batch_to_device(ds.collate([ds[i] for i in items]), dev)
+    bD = batch_to_device(ds.collate([ds[ds.G_to_D_mappings[i]]
+                                     for i in items]), dev)
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        step(bG, bD, True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    prof = kernel_profile(lambda: step(bG, bD, True))
+    busy_ms = sum(v["us"] for v in prof.values()) / 1e3
+    step_ms = float(np.median(times))
+    top = sorted(prof.items(), key=lambda kv: -kv[1]["us"])[:8]
+    return {"step_device_ms": times, "kernel_busy_ms_per_step": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
+            "kernels_launched": sum(v["launches"] for v in prof.values()),
+            "top_kernels_us": {k: v for k, v in top}}
+
+
+def vocoder_training(dev, root: str, card: str, config: str, n_utterances: int,
+                     label: str, **overrides):
+    """Train ``config`` (full width, as shipped but for one epoch, the
+    discriminator from step 2 and ``overrides``) on a synthetic corpus of
+    ``n_utterances`` through bin/train_vocoder; assert
+    the launch counts, finite losses and moved parameters; print the step
+    times, loader wait, peak memory and the device's idle share. Returns
+    (trainer, config path, launches)."""
+    from tts_tpu_torch.bin.train_vocoder import main as train_main
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models.vocoder.registry import (setup_discriminator,
+                                                       setup_generator)
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import grouped_conv_grad as GCK
+    from tts_tpu_torch.ops.cuda import stft_mag as SK
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = write_corpus(os.path.join(root, f"corpus_{label}"), n_utterances)
+    c = load_config(os.path.join(here, "configs", config))
+    c.update(data_path=os.path.join(corpus, "wavs"),
+             output_path=os.path.join(root, f"runs_{label}"),
+             steps_to_start_discriminator=VOC_DISC_START, epochs=1)
+    c.update(overrides)
+    cfg_path = os.path.join(root, f"{label}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_main(["--config_path", cfg_path])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = trainer.global_step
+    d_steps = sum(s["train_disc"] for s in trainer.step_stats)
+    # 3 full-band resolutions x (y_hat, y) a generator step (no subbands);
+    # the MelGAN discriminator's 9 kernel layers as in phase 8
+    melgan_d = c["discriminator_model"] == "melgan_multiscale_discriminator"
+    expect = {SK.KERNEL: 6 * steps,
+              GCK.DGRAD: 27 * d_steps if melgan_d else 0,
+              GCK.WGRAD: 18 * d_steps if melgan_d else 0}
+    log({f"{label}_training_launches": launches, "steps": steps,
+         "steps_with_discriminator": d_steps, "expected": expect})
+    assert d_steps == max(0, steps - c["steps_to_start_discriminator"]) > 0
+    for name, n in expect.items():
+        assert launches.get(name, 0) == n, (name, launches, expect)
+    for stats in trainer.step_stats:
+        values = [v for k, v in stats.items() if k.startswith(("G_", "D_"))]
+        assert values and all(np.isfinite(values)), stats
+    assert "D_loss" in trainer.step_stats[-1]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(c.get("seed", 54321))
+        init = {"G": setup_generator(c).state_dict(),
+                "D": setup_discriminator(c).state_dict()}
+    moved = {}
+    for side, model in (("G", trainer.gen), ("D", trainer.disc)):
+        diffs = [float((p.detach().cpu() - init[side][n]).abs().max())
+                 for n, p in model.named_parameters()]
+        moved[side] = f"{sum(d > 0 for d in diffs)}/{len(diffs)}"
+        assert sum(d > 0 for d in diffs) > len(diffs) // 2, (side, moved)
+    step_s = [s["step_time"] for s in trainer.step_stats]
+    idle = gan_step_idle(trainer)
+    log({f"{label}_training": config, "generator": c["generator_model"],
+         "discriminator": c["discriminator_model"],
+         "batch": c["batch_size"], "seq_len": c["seq_len"],
+         "mixed_precision": c.get("mixed_precision", False),
+         "steps": steps, "wall_s": wall_s,
+         "ms_per_step_median_after_first": 1e3 * float(np.median(step_s[1:])),
+         "ms_per_step": [1e3 * t for t in step_s],
+         "loader_ms": [1e3 * s["loader_time"] for s in trainer.step_stats],
+         "losses": [{k: v for k, v in s.items() if k.startswith(("G_", "D_"))}
+                    for s in trainer.step_stats],
+         "params_moved": moved, "peak_mem_gb": peak_gb,
+         "step_with_discriminator": idle, "card": card})
+    return trainer, cfg_path, launches
+
+
+def pwgan_training_phase(dev, root: str, card: str) -> dict:
+    """Phase 16: configs/parallel_wavegan.json, then 2 steps against the
+    random window discriminators (tts_tpu's windows)."""
+    trainer, cfg, _ = vocoder_training(dev, root, card,
+                                       "parallel_wavegan.json",
+                                       PWGAN_UTTERANCES, "pwgan")
+    assert trainer.global_step == 6 and trainer.step.needs_noise
+    # the batch at which gan_kernel_phase holds B5 against its plain version
+    assert (trainer.c["batch_size"], trainer.c["seq_len"]) == (PWGAN_BATCH,
+                                                               PWGAN_SEQ)
+    rwd, _, _ = vocoder_training(
+        dev, root, card, "parallel_wavegan.json", RWD_UTTERANCES, "pwgan_rwd",
+        discriminator_model="random_window_discriminator",
+        steps_to_start_discriminator=0)
+    assert rwd.global_step == 2 and rwd.step.disc_takes_cond
+    return {"trainer": trainer, "config": cfg}
+
+
+def istft_training_phase(dev, root: str, card: str) -> dict:
+    """Phase 17: configs/istft_melgan.json (bf16 mixed precision) against
+    the multiscale MelGAN discriminator; first the first batch's generator
+    losses and waveform in bfloat16 against float32 on the seeded
+    weights."""
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.train.trainer_vocoder import (VocoderTrainer,
+                                                     batch_to_device)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    c = load_config(os.path.join(here, "configs", "istft_melgan.json"))
+    assert c["mixed_precision"]
+    corpus = write_corpus(os.path.join(root, "corpus_probe"))
+    c["data_path"] = os.path.join(corpus, "wavs")
+    probe = VocoderTrainer(c, os.path.join(root, "probe"), device=dev)
+    ds = probe.dataset
+    batch = batch_to_device(ds.collate([ds[i] for i in
+                                        range(c["batch_size"])]), dev)
+    first, wav = {}, {}
+    step = probe.step
+    for dtype in (torch.float32, torch.bfloat16):
+        step.dtype = dtype
+        with torch.no_grad():
+            first[str(dtype)] = {k: float(v) for k, v in
+                                 step.generator_losses(batch, True).items()}
+            wav[dtype] = step.gen_forward(
+                {n: p.to(dtype) for n, p in probe.gen.named_parameters()},
+                batch["mel"], batch["audio"].shape[-1])[0].float()
+    f32, b16 = first["torch.float32"], first["torch.bfloat16"]
+    rel = {k: abs(b16[k] - f32[k]) / abs(f32[k]) for k in f32}
+    out_rel = float((wav[torch.bfloat16] - wav[torch.float32]).norm()
+                    / wav[torch.float32].norm())
+    log({"istft_first_batch_losses": first, "bf16_vs_fp32_rel": rel,
+         "bf16_vs_fp32_waveform_rel_norm": out_rel,
+         "batch": list(batch["audio"].shape)})
+    assert all(rel[k] <= GAN_BF16_TOL for k in GAN_BF16_HELD), rel
+    assert all(np.isfinite(v) for v in b16.values()), b16
+    lo, hi = GAN_BF16_OUT_RANGE
+    assert lo < out_rel < hi, out_rel
+    del probe, batch, wav, step
+
+    trainer, cfg, _ = vocoder_training(dev, root, card, "istft_melgan.json",
+                                       N_UTTERANCES, "istft",
+                                       epochs=ISTFT_EPOCHS)
+    assert trainer.global_step == ISTFT_EPOCHS
+    return {"trainer": trainer, "config": cfg}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: serving ParallelWaveGAN and the iSTFT MelGAN
+# ---------------------------------------------------------------------------
+
+def vocoder_serving_phase(dev, root: str, card: str, trained: dict):
+    """Phase 3's Glow-TTS in front of each trained generator: HTTP requests
+    (B3 counted, no B1/B2), the CLI, the vocoder on the card against the
+    CPU on the same mel, then the generator alone at phase 2's geometry."""
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.bin.synthesize import main as synthesize
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import synthesis, text_to_seqvec
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models.vocoder.pwgan import ParallelWaveganGenerator
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    from tts_tpu_torch.server.server import create_server
+    from tts_tpu_torch.train.checkpoint import latest_checkpoint
+
+    paths = build_models(root)
+    cfg = load_config(paths["tts_config"])
+    texts = ["Hello world!",
+             "The birch canoe slid on the smooth planks.",
+             "Four hours of steady work faced us, and the source of the huge "
+             "river was clear."]
+    for label, run in trained.items():
+        ckpt = latest_checkpoint(run["trainer"].output_path)
+        synth = Synthesizer(paths["tts"], paths["tts_config"], ckpt,
+                            run["config"], device=dev)
+        assert synth._packed is None and synth._stacks is None
+        hop = synth.vocoder_ap.hop_length
+        server = create_server(synth, port=0, host="127.0.0.1")
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        requests = []
+        try:
+            build.reset_launches()
+            for text in texts:
+                url = (f"http://127.0.0.1:{port}/api/tts?"
+                       + urllib.parse.urlencode({"text": text}))
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(url, timeout=300) as r:
+                    status, body = r.status, r.read()
+                ms = (time.perf_counter() - t0) * 1e3
+                assert status == 200 and body[:4] == b"RIFF", status
+                wav, _ = read_wav(body)
+                frames = -(-6 * len(text_to_seqvec(text, cfg)) // 2) * 2
+                expect = (frames * hop if frames % 32 else (frames + 4) * hop)
+                assert len(wav) == expect + 10000, (len(wav), expect)
+                assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+                requests.append({"text": text[:40], "latency_ms": ms,
+                                 "samples": len(wav)})
+            launches = dict(build.LAUNCHES)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        assert not thread.is_alive()
+        want = encoder_launches(synth.model, texts)
+        assert launches.get(GEK.KERNEL, 0) == want, (launches, want)
+        for kernel in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+            assert launches.get(kernel, 0) == 0, (kernel, launches)
+        log({f"{label}_serving": requests, "launches": launches,
+             "first_request_ms": requests[0]["latency_ms"],
+             "warm_request_ms": [r["latency_ms"] for r in requests[1:]]})
+
+        # the vocoder on the card against the CPU on the same mel (phase
+        # 3's first text; PWGAN's noise from the same CPU seed)
+        mel = synthesis(synth.model, texts[0], cfg, dev,
+                        generator=torch.Generator(dev).manual_seed(0)
+                        )["postnet_outputs"]
+        cpu = Synthesizer(paths["tts"], paths["tts_config"], ckpt,
+                          run["config"], device="cpu")
+        got, ref = synth._vocode(mel), cpu._vocode(mel)
+        assert got.shape == ref.shape
+        err = float(np.abs(got - ref).max())
+        log({f"{label}_vocoder_vs_cpu_max_abs_err": err,
+             "samples": len(got)})
+        assert err < 1e-3, err
+
+        # the synthesis CLI with this vocoder
+        build.reset_launches()
+        t0 = time.perf_counter()
+        path = synthesize([texts[1], paths["tts_config"], paths["tts"],
+                           os.path.join(root, f"cli_{label}"),
+                           "--vocoder_path", ckpt,
+                           "--vocoder_config_path", run["config"]])
+        seconds = time.perf_counter() - t0
+        cli_launches = dict(build.LAUNCHES)
+        wav, _ = read_wav(path)
+        frames = -(-6 * len(text_to_seqvec(texts[1], cfg)) // 2) * 2
+        expect = frames * hop if frames % 32 else (frames + 4) * hop
+        assert len(wav) == expect + 10000
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+        assert cli_launches.get(GEK.KERNEL, 0) == encoder_launches(
+            synth.model, texts[1:2])
+        assert not any(cli_launches.get(k, 0) for k in
+                       (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL))
+        log({f"{label}_cli": os.path.basename(path), "samples": len(wav),
+             "seconds_with_load": seconds, "launches": cli_launches})
+
+        # the served (folded) generator alone at phase 2's geometry
+        gen = synth.vocoder_model
+        g = torch.Generator(dev).manual_seed(SEED)
+        frames = MEL_FRAMES + 4
+        mel = torch.randn(BATCH, 80, frames, generator=g, device=dev)
+        if isinstance(gen, ParallelWaveganGenerator):
+            z = torch.randn(BATCH, 1, frames * gen.hop, generator=g,
+                            device=dev)
+            inputs = (z, mel)
+        else:
+            inputs = (mel,)
+        with torch.no_grad():
+            ms = cuda_time_ms(lambda: gen(*inputs), 10)
+            out = gen(*inputs)
+        assert out.shape == (BATCH, 1, frames * gen.hop)
+        assert bool(torch.isfinite(out).all())
+        flops = conv_flops(gen, *inputs)
+        weights = sum(p.numel() * 4 for p in gen.parameters())
+        bound = bound_ms(nbytes(*inputs, out) + weights, flops)
+        audio_s = out.numel() / synth.vocoder_ap.sample_rate
+        log({f"{label}_generator": f"batch {BATCH}, {MEL_FRAMES} + 4 frames",
+             "ms": ms, "audio_s_per_s": audio_s / (ms / 1e3),
+             "fp32_gflop": flops / 1e9,
+             "mflop_per_sample": flops / out.numel() / 1e6,
+             "bound_ms": bound[0], "bound_by": bound[1], "card": card})
+        del synth, cpu, server
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2187,6 +2597,10 @@ def main() -> int:
         taco2_training_phase(dev, root, card)
     with tempfile.TemporaryDirectory() as root:
         prewarm_phase(root, card)
+    with tempfile.TemporaryDirectory() as root:
+        vocoders = {"pwgan": pwgan_training_phase(dev, root, card),
+                    "istft": istft_training_phase(dev, root, card)}
+        vocoder_serving_phase(dev, root, card, vocoders)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",

@@ -227,6 +227,23 @@ def test_stft_kernel_matches_plain(cuda, n_fft, hop, win, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,win", [(1024, 120, 600),
+                                           (2048, 240, 1200),
+                                           (512, 50, 240)])
+def test_stft_kernel_at_the_pwgan_batch(cuda, n_fft, hop, win):
+    """The full-band resolutions at ParallelWaveGAN's training batch, 6 x
+    25,600 samples: 1,284, 642 and 3,078 frames, a few blocks of rows with
+    a ragged last one."""
+    y = 0.3 * torch.randn(6, 25600, generator=torch.Generator().manual_seed(7))
+    want = S.stft_magnitude(y, n_fft, hop, win)
+    before = build.LAUNCHES[SK.KERNEL]
+    got = S.stft_magnitude(y.to(cuda), n_fft, hop, win)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[SK.KERNEL] - before == 1
+    _close(got, want)
+
+
+@pytest.mark.cuda
 def test_stft_function_backward_on_the_card(cuda):
     """The kernel's Function against autograd through the plain version."""
     y = torch.randn(2, 900, generator=torch.Generator().manual_seed(1),
@@ -689,3 +706,99 @@ def test_glow_encode_above_the_kernels_text_limit(cuda):
     packed = model.encoder.packed_weights()
     with torch.no_grad(), pytest.raises(RuntimeError, match="failed"):
         GE.fused_glow_encoder(model.encoder, packed, text, lengths)
+
+
+def _to_both(module_fn, seed, cuda):
+    torch.manual_seed(seed)
+    cpu = module_fn().eval()
+    dev = module_fn().eval()
+    dev.load_state_dict(cpu.state_dict())
+    return cpu, dev.to(cuda)
+
+
+@pytest.mark.cuda
+def test_pwgan_and_its_discriminators_on_the_card(cuda):
+    """ParallelWaveGAN's generator (shipped widths, 6 blocks in 2 stacks),
+    its two discriminators and the random window discriminators on the
+    card against the same modules on the CPU (same noise, same offsets);
+    ``inference`` with a CPU generator gives the CPU's audio."""
+    from tts_tpu_torch.models.vocoder.pwgan import (
+        ParallelWaveganDiscriminator, ParallelWaveganGenerator,
+        ResidualParallelWaveganDiscriminator)
+    from tts_tpu_torch.models.vocoder.rwd import RandomWindowDiscriminator
+    gen_cpu, gen = _to_both(lambda: ParallelWaveganGenerator(
+        num_res_blocks=6, stacks=2), 0, cuda)
+    g = torch.Generator().manual_seed(1)
+    mel = torch.randn(2, 80, 24, generator=g)
+    z = torch.randn(2, 1, 24 * 256, generator=g)
+    with torch.no_grad():
+        _close(gen(z.to(cuda), mel.to(cuda)), gen_cpu(z, mel))
+        _close(gen.inference(mel.to(cuda), torch.Generator().manual_seed(0)),
+               gen_cpu.inference(mel, torch.Generator().manual_seed(0)))
+    y = torch.randn(2, 1, 24 * 256, generator=g) * 0.3
+    for make in (ParallelWaveganDiscriminator,
+                 lambda: ResidualParallelWaveganDiscriminator(num_layers=6,
+                                                              stacks=2)):
+        d_cpu, d = _to_both(make, 2, cuda)
+        with torch.no_grad():
+            _close(d(y.to(cuda)), d_cpu(y))
+    d_cpu, d = _to_both(RandomWindowDiscriminator, 3, cuda)
+    offsets = d.draw_offsets(y.shape[-1], mel.shape[-1],
+                             torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        got, _ = d(y.to(cuda), mel.to(cuda), offsets=offsets)
+        want, _ = d_cpu(y, mel, offsets=offsets)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_istft_melgan_on_the_card(cuda):
+    """The iSTFT generator (shipped widths) on the card against the CPU in
+    float32; in bfloat16 (cast parameters, as the mixed-precision step)
+    its head runs in float32 and its output is float32 and finite."""
+    from torch.func import functional_call
+
+    from tts_tpu_torch.models.vocoder.istft_melgan import \
+        ISTFTMelganGenerator
+    cpu, gen = _to_both(ISTFTMelganGenerator, 5, cuda)
+    mel = torch.randn(2, 80, 20, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        _close(gen(mel.to(cuda)), cpu(mel))
+        _close(gen.inference(mel.to(cuda)), cpu.inference(mel))
+        bf16 = {n: p.to(torch.bfloat16) for n, p in gen.named_parameters()}
+        out = functional_call(gen, bf16, (mel.to(cuda, torch.bfloat16),))
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_pwgan_rwd_gan_step_on_the_card(cuda):
+    """One GAN step of a narrow ParallelWaveGAN against the random window
+    discriminators on the card, noise from a card generator and crops from
+    a host one: B5 launches 6 times (3 resolutions x y_hat and y), losses
+    are finite and both networks move."""
+    from tts_tpu_torch.models.vocoder.pwgan import ParallelWaveganGenerator
+    from tts_tpu_torch.models.vocoder.rwd import RandomWindowDiscriminator
+    from tts_tpu_torch.train.gan import GANTrainStep
+    from tts_tpu_torch.train.optim import make_optimizer
+    torch.manual_seed(0)
+    gen = ParallelWaveganGenerator(num_res_blocks=3, stacks=3).to(cuda)
+    disc = RandomWindowDiscriminator().to(cuda)
+    step = GANTrainStep(gen, disc, make_optimizer(gen), make_optimizer(disc),
+                        conv_pad=0,
+                        generator=torch.Generator(cuda).manual_seed(1),
+                        crop_generator=torch.Generator().manual_seed(1),
+                        gen_loss_kwargs={"use_stft_loss": True})
+    g = torch.Generator().manual_seed(2)
+    batch = {s: {"mel": torch.randn(2, 80, 32, generator=g).to(cuda),
+                 "audio": (0.3 * torch.randn(2, 1, 8192, generator=g)
+                           ).to(cuda)} for s in "GD"}
+    g0 = [p.detach().clone() for p in gen.parameters()]
+    d0 = [p.detach().clone() for p in disc.parameters()]
+    before = build.LAUNCHES.get(SK.KERNEL, 0)
+    losses = step(batch["G"], batch["D"], train_disc=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[SK.KERNEL] - before == 6
+    assert all(torch.isfinite(torch.tensor(v)) for v in losses.values())
+    assert any(not torch.equal(p, q) for p, q in zip(gen.parameters(), g0))
+    assert any(not torch.equal(p, q) for p, q in zip(disc.parameters(), d0))

@@ -16,7 +16,10 @@ leaf: the training tests map jax gradients and optax-updated params with it
 and compare them with the port's ``.grad`` and parameters by name.
 ``melgan_state_dict_from_jax`` folds weight norm first, so it maps params
 only (and trees without weight norm leaf by leaf);
-``melgan_discriminator_state_dict_from_jax`` moves leaves only;
+``melgan_discriminator_state_dict_from_jax`` moves leaves only, and so do
+the ParallelWaveGAN converters (flax and torch both norm those convs per
+output channel) and ``rwd_state_dict_from_jax``;
+``istft_melgan_state_dict_from_jax`` folds as the MelGAN one does;
 ``tacotron2_state_dict_from_jax`` packs the per-gate LSTM kernels and adds
 the zero biases tts_tpu leaves out, so it maps params only. The other
 direction, port -> tts_tpu, is ``tts_tpu/compat/torch_port.py`` in the JAX
@@ -240,6 +243,121 @@ def melgan_discriminator_state_dict_from_jax(params: Tree
     return _tensors(sd)
 
 
+def istft_melgan_state_dict_from_jax(params: Tree,
+                                     upsample_factors: Sequence[int],
+                                     num_res_blocks: int
+                                     ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``ISTFTMelganGenerator`` params -> the port's state dict.
+    Its body is the MelGAN generator's tree with the output conv named
+    ``proj_head``, so it goes through ``melgan_state_dict_from_jax``
+    (weight norm folded, then re-split per torch's ``dim=0``)."""
+    body = {("proj_out" if k == "proj_head" else k): v
+            for k, v in params.items()}
+    return melgan_state_dict_from_jax(body, upsample_factors, num_res_blocks)
+
+
+# ---------------------------------------------------------------------------
+# ParallelWaveGAN and the random window discriminators
+# ---------------------------------------------------------------------------
+
+def _put_conv(sd: Dict[str, np.ndarray], dst: str, parent: Tree, name: str,
+              layout=_conv) -> None:
+    """``parent[name]``'s kernel (in torch's ``layout``) and bias at
+    ``dst``: as ``weight_v`` / ``weight_g`` when a flax WeightNorm of
+    ``parent`` holds its scale (per output channel on both sides, so the
+    pair moves verbatim), else as ``weight``. Leaves are only moved and
+    reshaped, so gradient trees map the same way."""
+    leaf = parent[name]
+    w = layout(np.asarray(leaf["kernel"], np.float32))
+    scales = _weight_norm_scales(parent)
+    if name in scales:
+        sd[f"{dst}.weight_v"] = w
+        sd[f"{dst}.weight_g"] = scales[name].reshape(
+            (-1,) + (1,) * (w.ndim - 1))
+    else:
+        sd[f"{dst}.weight"] = w
+    if "bias" in leaf:
+        sd[f"{dst}.bias"] = np.asarray(leaf["bias"], np.float32)
+
+
+def _time_conv2d(kernel: np.ndarray) -> np.ndarray:
+    """flax (k_t, 1) conv over (time, mel) with one feature, kernel
+    (k_t, 1, 1, 1) -> torch Conv2d (1, 1, 1, k_t) over (B, 1, mel, time)."""
+    return np.ascontiguousarray(kernel[:, 0, 0, 0].reshape(1, 1, 1, -1))
+
+
+def _pwgan_block(sd: Dict[str, np.ndarray], dst: str, blk: Tree) -> None:
+    _put_conv(sd, f"{dst}.conv", blk, "conv")
+    if "conv_aux" in blk:
+        _put_conv(sd, f"{dst}.conv1x1_aux", blk, "conv_aux")
+    _put_conv(sd, f"{dst}.conv1x1_skip", blk, "conv_skip")
+    _put_conv(sd, f"{dst}.conv1x1_out", blk, "conv_res")
+
+
+def pwgan_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``ParallelWaveganGenerator`` params (weight-normed or
+    not) -> the port's state dict in Mozilla's names; the inverse of
+    ``tts_tpu/compat/torch_port.py::port_pwgan``."""
+    sd: Dict[str, np.ndarray] = {}
+    up = params["upsample"]
+    _put_conv(sd, "upsample_net.conv_in", up, "conv_in")
+    n_up = sum(1 for k in up if k.startswith("conv_") and k != "conv_in")
+    for i in range(n_up):
+        _put_conv(sd, f"upsample_net.upsample.up_layers.{2 * i + 1}", up,
+                  f"conv_{i}", _time_conv2d)
+    _put_conv(sd, "first_conv", params, "first_conv")
+    n_blocks = sum(1 for k in params if k.startswith("block_"))
+    for i in range(n_blocks):
+        _pwgan_block(sd, f"conv_layers.{i}", params[f"block_{i}"])
+    _put_conv(sd, "last_conv_layers.1", params, "post_conv1")
+    _put_conv(sd, "last_conv_layers.3", params, "post_conv2")
+    return _tensors(sd)
+
+
+def pwgan_discriminator_state_dict_from_jax(params: Tree
+                                            ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``ParallelWaveganDiscriminator`` (``conv_{i}``,
+    ``conv_out``) -> the port's ``conv_layers.{2i}``, the output conv
+    last."""
+    sd: Dict[str, np.ndarray] = {}
+    n = sum(1 for k in params if k.startswith("conv_") and k != "conv_out")
+    for i in range(n):
+        _put_conv(sd, f"conv_layers.{2 * i}", params, f"conv_{i}")
+    _put_conv(sd, f"conv_layers.{2 * n}", params, "conv_out")
+    return _tensors(sd)
+
+
+def residual_pwgan_discriminator_state_dict_from_jax(
+        params: Tree) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``ResidualParallelWaveganDiscriminator`` -> the port's
+    (``first_conv.0``, ``conv_layers.{i}``, ``last_conv_layers.{1,3}``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_conv(sd, "first_conv.0", params, "first_conv")
+    n_blocks = sum(1 for k in params if k.startswith("block_"))
+    for i in range(n_blocks):
+        _pwgan_block(sd, f"conv_layers.{i}", params[f"block_{i}"])
+    _put_conv(sd, "last_conv_layers.1", params, "post_conv1")
+    _put_conv(sd, "last_conv_layers.3", params, "post_conv2")
+    return _tensors(sd)
+
+
+def rwd_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``RandomWindowDiscriminator`` -> the port's, names kept
+    (``uncond_{i}`` / ``cond_{i}`` / block / conv); the Dense ``out``
+    becomes a Linear. No weight norm; leaves are only moved."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params).items():
+        parts = path.split("/")
+        dst = ".".join(parts[:-1])
+        if parts[-1] == "bias":
+            sd[f"{dst}.bias"] = val
+        elif parts[-2] == "out":                     # Dense (in, 1)
+            sd[f"{dst}.weight"] = np.ascontiguousarray(val.T)
+        else:
+            sd[f"{dst}.weight"] = _conv(val)
+    return _tensors(sd)
+
+
 # ---------------------------------------------------------------------------
 # Tacotron2
 # ---------------------------------------------------------------------------
@@ -348,16 +466,24 @@ def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
     """A tts_tpu checkpoint ({"params", "batch_stats", "meta"}) -> the port
     model's state dict, by the config's model: a vocoder config
-    (``generator_model``, the MelGAN family) through
-    ``melgan_state_dict_from_jax`` with its upsample factors and residual
-    stacks; a TTS config's ``glow_tts`` or ``tacotron2`` through their
-    converters (Tacotron2 with the checkpoint's ``batch_stats``)."""
+    (``generator_model``): ParallelWaveGAN through
+    ``pwgan_state_dict_from_jax``, the iSTFT MelGAN through
+    ``istft_melgan_state_dict_from_jax`` and the MelGAN family through
+    ``melgan_state_dict_from_jax``, with the upsample factors and residual
+    stacks of the config's generator; a TTS config's ``glow_tts`` or
+    ``tacotron2`` through their converters (Tacotron2 with the checkpoint's
+    ``batch_stats``)."""
     params = ckpt["params"]
     if "generator_model" in c:
         from tts_tpu_torch.models.vocoder.registry import setup_generator
+        name = c["generator_model"].lower()
+        if name == "parallel_wavegan_generator":
+            return pwgan_state_dict_from_jax(params)
         gen = setup_generator(c, use_weight_norm=False)
-        return melgan_state_dict_from_jax(params, gen.upsample_factors,
-                                          gen.num_res_blocks)
+        convert = (istft_melgan_state_dict_from_jax
+                   if name == "istft_melgan_generator"
+                   else melgan_state_dict_from_jax)
+        return convert(params, gen.upsample_factors, gen.num_res_blocks)
     name = c.get("model", "").lower()
     if name == "glow_tts":
         return glow_tts_state_dict_from_jax(params)

@@ -1,6 +1,6 @@
-"""Synthesizer: checkpointed Glow-TTS or Tacotron2 + an optional
-MelGAN-family vocoder, sentence-wise (≙ tts_tpu/infer/synthesizer.py for
-these models).
+"""Synthesizer: checkpointed Glow-TTS or Tacotron2 + an optional GAN
+vocoder (the MelGAN family, ParallelWaveGAN or the iSTFT MelGAN),
+sentence-wise (≙ tts_tpu/infer/synthesizer.py for these models).
 
 Each checkpoint is either the port's ``torch.save({"model": state_dict,
 ...})`` file (a Mozilla TTS state dict loads as it is, since the port keeps
@@ -13,10 +13,16 @@ vocoder the waveform is Griffin-Lim on the host, as in tts_tpu.
 Glow-TTS runs its encoder as one fused call (B3; packed once at load); a
 Tacotron2 whose configuration the fused decode supports runs the B7 and B8
 kernels on the card (``infer/synthesis.py::run_model``). On ``cuda`` (the
-default) the vocoder always runs through the hand-written kernels:
-``megakernel_inference`` when the upsample factors are even, else the
-per-stack path ``fused_inference``. On ``device="cpu"`` the same calls take
-their plain PyTorch versions.
+default) a MelGAN-family vocoder always runs through the hand-written
+kernels: ``megakernel_inference`` when the upsample factors are even, else
+the per-stack path ``fused_inference``. On ``device="cpu"`` the same calls
+take their plain PyTorch versions. Any other generator serves through its
+module's ``inference`` with folded weights, as in tts_tpu (no TPU kernel
+stands behind those either). ParallelWaveGAN's noise comes from a CPU
+generator seeded 0 for each sentence, so a request gives the same audio
+on every device: tts_tpu's Synthesizer passes that model no noise key and
+raises (ROADMAP C18), and this is the rule tts_tpu applies to its other
+stochastic vocoder, WaveRNN (``PRNGKey(0)``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ from tts_tpu_torch.models.glow_tts import GlowTTS
 from tts_tpu_torch.models.registry import setup_model
 from tts_tpu_torch.models.tacotron2 import Tacotron2
 from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
+from tts_tpu_torch.models.vocoder.istft_melgan import ISTFTMelganGenerator
+from tts_tpu_torch.models.vocoder.melgan import MelganGenerator
+from tts_tpu_torch.models.vocoder.pwgan import ParallelWaveganGenerator
 from tts_tpu_torch.models.vocoder.registry import setup_generator
 from tts_tpu_torch.models.vocoder.serving import fused_inference, pack_stacks
 from tts_tpu_torch.ops.cuda.fused_melgan import (megakernel_inference,
@@ -100,13 +109,23 @@ class Synthesizer:
         sd = fold_weight_norm(load_checkpoint(checkpoint,
                                               self.vocoder_config)["model"])
         gen = setup_generator(self.vocoder_config, use_weight_norm=False)
+        # the iSTFT family emits prod(upsample_factors) * hop_head samples
+        # per frame: fail at load, as tts_tpu does, where that is not the
+        # audio's hop
+        if (isinstance(gen, ISTFTMelganGenerator)
+                and gen.hop != self.vocoder_ap.hop_length):
+            raise ValueError(
+                f"iSTFT-MelGAN total hop ({gen.hop}) != vocoder audio "
+                f"hop_length ({self.vocoder_ap.hop_length}); fix the vocoder "
+                f"config")
         gen.load_state_dict(sd)
         self.vocoder_model = gen.to(self.device).eval()
+        self._packed = self._stacks = None
+        if not isinstance(gen, MelganGenerator):
+            return                          # the module's own inference
         if megakernel_supported(gen):
             self._packed = pack_generator_params(gen, sd, self.device)
-            self._stacks = None
         else:
-            self._packed = None
             self._stacks = pack_stacks(self.vocoder_model)
 
     @torch.no_grad()
@@ -126,10 +145,15 @@ class Synthesizer:
         mel = mel[None].to(self.device)
         gen = self.vocoder_model
         if self._packed is not None:
-            wav = megakernel_inference(gen, self._packed, mel)
+            wav = megakernel_inference(gen, self._packed, mel)[0, :, 0]
+        elif self._stacks is not None:
+            wav = fused_inference(gen, self._stacks, mel)[0, :, 0]
+        elif isinstance(gen, ParallelWaveganGenerator):
+            wav = gen.inference(mel.transpose(1, 2),
+                                torch.Generator().manual_seed(0))[0, 0]
         else:
-            wav = fused_inference(gen, self._stacks, mel)
-        wav = wav[0, :, 0].cpu().numpy()
+            wav = gen.inference(mel.transpose(1, 2))[0, 0]
+        wav = wav.cpu().numpy()
         hop = self.vocoder_ap.hop_length
         return wav[:n * hop] if n < nb else wav
 

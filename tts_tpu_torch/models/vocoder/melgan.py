@@ -87,6 +87,31 @@ class ResidualStack(nn.Module):
         return x
 
 
+def generator_layers(in_channels: int, out_channels: int, proj_kernel: int,
+                     base_channels: int, upsample_factors: Sequence[int],
+                     res_kernel: int, num_res_blocks: int,
+                     use_weight_norm: bool) -> list:
+    """Mozilla's ``layers`` up to the output conv (no tanh): reflect pad,
+    proj_in, per factor [LeakyReLU, ConvTranspose1d, ResidualStack] halving
+    the channels, LeakyReLU, reflect pad, proj_out."""
+    pad = (proj_kernel - 1) // 2
+    layers = [nn.ReflectionPad1d(pad),
+              _maybe_wn(nn.Conv1d(in_channels, base_channels, proj_kernel),
+                        use_weight_norm)]
+    ch = base_channels
+    for f in upsample_factors:
+        layers += [nn.LeakyReLU(NEGATIVE_SLOPE),
+                   _maybe_wn(UpsampleConvTranspose1d(ch, ch // 2, f),
+                             use_weight_norm),
+                   ResidualStack(ch // 2, res_kernel, num_res_blocks,
+                                 use_weight_norm)]
+        ch //= 2
+    layers += [nn.LeakyReLU(NEGATIVE_SLOPE), nn.ReflectionPad1d(pad),
+               _maybe_wn(nn.Conv1d(ch, out_channels, proj_kernel),
+                         use_weight_norm)]
+    return layers
+
+
 class MelganGenerator(nn.Module):
     """mel (B, in, T) -> (B, out, T * prod(upsample_factors))."""
 
@@ -104,23 +129,11 @@ class MelganGenerator(nn.Module):
         self.num_res_blocks = num_res_blocks
         self.inference_padding = inference_padding
         self.use_weight_norm = use_weight_norm
-        pad = (proj_kernel - 1) // 2
-        layers = [nn.ReflectionPad1d(pad),
-                  _maybe_wn(nn.Conv1d(in_channels, base_channels, proj_kernel),
-                            use_weight_norm)]
-        ch = base_channels
-        for f in self.upsample_factors:
-            layers += [nn.LeakyReLU(NEGATIVE_SLOPE),
-                       _maybe_wn(UpsampleConvTranspose1d(ch, ch // 2, f),
-                                 use_weight_norm),
-                       ResidualStack(ch // 2, res_kernel, num_res_blocks,
-                                     use_weight_norm)]
-            ch //= 2
-        layers += [nn.LeakyReLU(NEGATIVE_SLOPE), nn.ReflectionPad1d(pad),
-                   _maybe_wn(nn.Conv1d(ch, out_channels, proj_kernel),
-                             use_weight_norm),
-                   nn.Tanh()]
-        self.layers = nn.Sequential(*layers)
+        self.layers = nn.Sequential(
+            *generator_layers(in_channels, out_channels, proj_kernel,
+                              base_channels, self.upsample_factors,
+                              res_kernel, num_res_blocks, use_weight_norm),
+            nn.Tanh())
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         return self.layers(c)

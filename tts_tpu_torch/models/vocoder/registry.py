@@ -1,6 +1,7 @@
 """Vocoder model factories by config name
 (≙ tts_tpu/models/vocoder/registry.py: ``setup_generator`` and
-``setup_discriminator``, MelGAN family)."""
+``setup_discriminator`` with tts_tpu's defaults). WaveRNN is not ported
+yet."""
 
 from __future__ import annotations
 
@@ -40,6 +41,27 @@ def setup_generator(c: Dict[str, Any], use_weight_norm: bool = True):
                                               (2, 8, 2, 2))),
             num_res_blocks=params.get("num_res_blocks", 4),
             use_weight_norm=use_weight_norm)
+    if name == "istft_melgan_generator":
+        from tts_tpu_torch.models.vocoder.istft_melgan import \
+            ISTFTMelganGenerator
+        return ISTFTMelganGenerator(
+            in_channels=in_channels,
+            base_channels=params.get("base_channels", 512),
+            upsample_factors=tuple(params.get("upsample_factors", (8, 8))),
+            num_res_blocks=params.get("num_res_blocks", 3),
+            n_fft_head=params.get("n_fft_head", 16),
+            hop_head=params.get("hop_head", 4),
+            use_weight_norm=use_weight_norm)
+    if name == "parallel_wavegan_generator":
+        from tts_tpu_torch.models.vocoder.pwgan import \
+            ParallelWaveganGenerator
+        return ParallelWaveganGenerator(
+            aux_channels=in_channels,
+            num_res_blocks=params.get("num_res_blocks", 30),
+            stacks=params.get("stacks", 3),
+            upsample_factors=tuple(params.get("upsample_factors",
+                                              (4, 4, 4, 4))),
+            use_weight_norm=use_weight_norm)
     raise KeyError(f"unknown or not yet ported generator model: {name}")
 
 
@@ -54,4 +76,23 @@ def setup_discriminator(c: Dict[str, Any]):
     if name == "melgan_discriminator":
         from tts_tpu_torch.models.vocoder.melgan import MelganDiscriminator
         return MelganDiscriminator()
+    if name == "parallel_wavegan_discriminator":
+        from tts_tpu_torch.models.vocoder.pwgan import \
+            ParallelWaveganDiscriminator
+        return ParallelWaveganDiscriminator(
+            num_layers=params.get("num_layers", 10))
+    if name == "residual_parallel_wavegan_discriminator":
+        from tts_tpu_torch.models.vocoder.pwgan import \
+            ResidualParallelWaveganDiscriminator
+        return ResidualParallelWaveganDiscriminator(
+            num_layers=params.get("num_layers", 30),
+            stacks=params.get("stacks", 3))
+    if name == "random_window_discriminator":
+        from tts_tpu_torch.models.vocoder.rwd import RandomWindowDiscriminator
+        audio = c.get("audio", {})
+        return RandomWindowDiscriminator(
+            cond_channels=audio.get("num_mels", 80),
+            hop_length=audio.get("hop_length", 256),
+            window_sizes=tuple(params.get("window_sizes",
+                                          (512, 1024, 2048, 4096, 8192))))
     raise KeyError(f"unknown or not yet ported discriminator model: {name}")

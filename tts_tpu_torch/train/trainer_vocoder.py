@@ -4,7 +4,9 @@ Alternating generator / discriminator steps (``train/gan.py``), the
 discriminator joining after ``steps_to_start_discriminator`` steps, one
 optimizer per network (``train/optim.py``: gradient clip + RAdam, no
 decay, no schedule). Weights start from ``config["seed"]`` (54321 by
-default). The dataset is built once, so the generator / discriminator item
+default), and so do the ``torch.Generator`` on the device that draws
+ParallelWaveGAN's noise and the one on the host that draws the random
+window discriminators' crop offsets. The dataset is built once, so the generator / discriminator item
 mapping is reshuffled after every epoch and segment starts keep drawing
 from one stream. Checkpoints come in pairs, ``checkpoint_<step>.pt`` (the
 generator, which the ``Synthesizer`` serves as its vocoder) and
@@ -70,12 +72,17 @@ class VocoderTrainer:
                                     grad_clip=c.get("grad_clip", 10.0))
         self.opt_D = make_optimizer(self.disc, lr=c.get("lr_disc", 1e-4),
                                     grad_clip=c.get("grad_clip", 10.0))
+        self.generator = torch.Generator(self.device).manual_seed(
+            c.get("seed", 54321))
+        self.crop_generator = torch.Generator().manual_seed(
+            c.get("seed", 54321))
         # config "mixed_precision": bfloat16 forwards, float32 masters
         self.step = GANTrainStep(
             self.gen, self.disc, self.opt_G, self.opt_D,
             hop_len=c["audio"].get("hop_length", 256),
             conv_pad=c.get("conv_pad", 0),
             use_pqmf="multiband" in c["generator_model"].lower(),
+            generator=self.generator, crop_generator=self.crop_generator,
             gen_loss_kwargs={k: c[k] for k in GEN_LOSS_KEYS if k in c},
             disc_loss_kwargs={k: c[k] for k in DISC_LOSS_KEYS if k in c},
             mixed_precision=c.get("mixed_precision", False))
