@@ -157,6 +157,40 @@ Phases, in order; any failure exits non-zero with its traceback:
    audio-seconds per second, and its fp32 bound from the convolutions'
    FLOPs in that call.
 
+19. speaker encoder: configs/speaker_encoder.json as shipped (3 x LSTM
+   768 -> 256, GE2E softmax, 64 speakers x 10 utterances of 1.6 s at
+   16 kHz, the storage replay as configured) on a synthetic voxceleb1-style
+   tree of 64 speakers x 11 utterances (each speaker its own pitch and
+   harmonic weights; the loader holds one utterance of the tree out), 4
+   steps through bin/train_encoder: every loss finite,
+   no hand-written kernel launched (the encoder's LSTMs are cuDNN's, as
+   tts_tpu's are XLA's); step and loader ms, one step profiled (device
+   busy ms, idle share, launches), peak memory, forward FLOPs; the GE2E
+   loss on the card against the CPU on the same weights and the first 16
+   speakers of the last batch (1e-4 relative). Then the sliding-window
+   d-vectors of every utterance of a synthetic VCTK-style corpus (8
+   speakers x 12, 22,050 Hz, resampled to 16 kHz by load_wav) into
+   speakers.json.
+20. multi-speaker training on that corpus, each config at its shipped
+   widths through its training CLI: configs/glow_tts_ljspeech.json with
+   use_speaker_embedding (8 speaker ids; 2 epochs of 2 steps; B4 once a
+   step plus the DDI pass, B3 never), configs/tacotron2_ljspeech.json
+   reading phase 19's speakers.json (decoder input 512 + 256), and the
+   same with use_gst (512 + 256 + 512; the registry's GST defaults), each
+   3 epochs of one step at r 7 (batch 64, bf16 mixed precision, DDC); B8
+   never, B7 only in the eval epochs. Every loss finite; step, loader ms,
+   peak memory, and the longest batch's step profiled (idle share).
+21. multi-speaker serving: the trained Glow with phase 3's
+   Multiband-MelGAN over HTTP with ?speaker_id= 0 and 1 (the two differ,
+   repeats are equal; B1/B2 launched, B3 not; first and warm latency), the
+   CLI with --speaker_id 1 (equal to the server's audio), and the mel on
+   the card against the CPU (noise 0) within 1e-4 of its largest
+   magnitude; the two Tacotron2 checkpoints through synthesis() with a
+   d-vector (and a style wav): B7 1 + text bucket launches a sentence, B8
+   none, two speakers' mels differ, and the decode on the card against the
+   CPU on the same weights agrees within 1e-4 for at least 16 steps (the
+   first step apart printed).
+
 Phases 3 and 4 run Glow's encoder through B3 too: phase 3 asserts its
 launches (one call per sentence), phase 4 prints its share of glow_ms.
 
@@ -172,6 +206,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.parse
 import urllib.request
 
@@ -247,6 +282,35 @@ def kernel_profile(fn) -> dict:
                 "us": us, "launches": ev.count}
     return out
 
+
+
+def busy_summary(prof: dict, step_ms: float, top: int) -> dict:
+    """From ``kernel_profile`` of one step and the step's median time: the
+    kernels' device time, their launches, the share of the step in which
+    no kernel runs, and the ``top`` busiest kernels."""
+    busy_ms = sum(v["us"] for v in prof.values()) / 1e3
+    busiest = sorted(prof.items(), key=lambda kv: -kv[1]["us"])[:top]
+    return {"step_ms_median": step_ms, "kernel_busy_ms_per_step": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
+            "kernels_launched": sum(v["launches"] for v in prof.values()),
+            "top_kernels_us": dict(busiest)}
+
+
+def step_profile(step, reps: int = 3, top: int = 6) -> dict:
+    """``step()`` timed between events (median of ``reps``) and profiled
+    once more (``busy_summary``)."""
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return {"step_device_ms": times,
+            **busy_summary(kernel_profile(step), float(np.median(times)),
+                           top)}
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     err = float((got - want).abs().max())
@@ -1884,20 +1948,13 @@ def taco2_step_split(trainer, batch, r: int, reps: int = 3):
         torch.cuda.synchronize()
         split.append(([ev[i].elapsed_time(ev[i + 1]) for i in range(3)],
                       [1e3 * (host[i + 1] - host[i]) for i in range(3)]))
-    prof = kernel_profile(step)
-    busy_ms = sum(v["us"] for v in prof.values()) / 1e3
     step_ms = float(np.median([sum(d) for d, _ in split]))
-    top = sorted(prof.items(), key=lambda kv: -kv[1]["us"])[:12]
     parts = ("forward_and_loss", "backward", "optimizer")
     return {"r": r, "batch": list(batch["mel"].shape),
             "split_ms": {p: {"device": [d[i] for d, _ in split],
                              "host_enqueue": [h[i] for _, h in split]}
                          for i, p in enumerate(parts)},
-            "step_ms_median": step_ms,
-            "kernel_busy_ms_per_step": busy_ms,
-            "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
-            "kernels_launched": sum(v["launches"] for v in prof.values()),
-            "top_kernels_us": {k: v for k, v in top}}
+            **busy_summary(kernel_profile(step), step_ms, 12)}
 
 
 def taco2_training_phase(dev, root: str, card: str):
@@ -2245,10 +2302,8 @@ def conv_flops(module, *inputs) -> float:
 
 
 def gan_step_idle(trainer, reps: int = 3) -> dict:
-    """One generator + discriminator step on a fixed batch pair: device
-    time between events (median of ``reps``), torch.profiler's device time
-    by kernel over one more step, and the share of the step in which no
-    kernel runs."""
+    """``step_profile`` of one generator + discriminator step on a fixed
+    batch pair."""
     from tts_tpu_torch.train.trainer_vocoder import batch_to_device
 
     ds, step, dev = trainer.dataset, trainer.step, trainer.device
@@ -2256,23 +2311,7 @@ def gan_step_idle(trainer, reps: int = 3) -> dict:
     bG = batch_to_device(ds.collate([ds[i] for i in items]), dev)
     bD = batch_to_device(ds.collate([ds[ds.G_to_D_mappings[i]]
                                      for i in items]), dev)
-    times = []
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        step(bG, bD, True)
-        ev[1].record()
-        torch.cuda.synchronize()
-        times.append(ev[0].elapsed_time(ev[1]))
-    prof = kernel_profile(lambda: step(bG, bD, True))
-    busy_ms = sum(v["us"] for v in prof.values()) / 1e3
-    step_ms = float(np.median(times))
-    top = sorted(prof.items(), key=lambda kv: -kv[1]["us"])[:8]
-    return {"step_device_ms": times, "kernel_busy_ms_per_step": busy_ms,
-            "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
-            "kernels_launched": sum(v["launches"] for v in prof.values()),
-            "top_kernels_us": {k: v for k, v in top}}
+    return step_profile(lambda: step(bG, bD, True), reps, top=8)
 
 
 def vocoder_training(dev, root: str, card: str, config: str, n_utterances: int,
@@ -2552,6 +2591,531 @@ def vocoder_serving_phase(dev, root: str, card: str, trained: dict):
         del synth, cpu, server
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the speaker encoder, multi-speaker training and serving
+# ---------------------------------------------------------------------------
+
+ENC_SPEAKERS, ENC_UTTERANCES = 64, 10   # configs/speaker_encoder.json's N, M
+# utterances written per speaker: load_meta_data holds one item of the tree
+# out even at eval_split_size 0 (tts_tpu's rule), and a speaker needs M left
+VOX_UTTERANCES = ENC_UTTERANCES + 1
+ENC_SAMPLE_RATE = 16000
+ENC_STEPS = 4
+ENC_CPU_SPEAKERS = 16       # speakers of the batch that the CPU check runs
+VCTK_SPEAKERS, VCTK_UTTERANCES = 8, 12
+MS_GLOW_EPOCHS = 2          # 95 training items at batch 32: 2 steps each
+MS_TACO_EPOCHS = 3          # 95 training items at batch 64 (r 7): 1 each
+MS_TACO_STEPS = 80          # served decoder budget (phase 10's)
+
+
+def _voice(rng, n: int, sr: int, f0: float, timbre) -> np.ndarray:
+    """A gliding harmonic tone of its speaker's pitch and harmonic weights,
+    plus noise."""
+    t = np.arange(n) / sr
+    glide = f0 * (1 + 0.08 * np.sin(2 * np.pi * rng.uniform(0.3, 0.9) * t))
+    phase = 2 * np.pi * np.cumsum(glide) / sr
+    y = sum(w * np.sin((k + 1) * phase) for k, w in enumerate(timbre))
+    return (0.3 * y / sum(timbre) + 0.02 * rng.standard_normal(n)
+            ).astype(np.float32)
+
+
+def write_voxceleb(root: str, n_speakers: int, n_utts: int) -> str:
+    """voxceleb1 layout (<root>/wav/id1NNNN/<clip>/NNNNN.wav, 16 kHz): each
+    speaker a pitch of 80-320 Hz and 5 harmonic weights of its own, each
+    utterance 1.8-3.0 s."""
+    from tts_tpu_torch.audio.processor import write_wav
+
+    rng = np.random.default_rng(SEED + 19)
+    for s in range(n_speakers):
+        f0 = 80 * 4 ** (s / max(n_speakers - 1, 1))
+        timbre = rng.uniform(0.1, 1.0, 5)
+        for u in range(n_utts):
+            n = int(rng.uniform(1.8, 3.0) * ENC_SAMPLE_RATE)
+            path = os.path.join(root, "wav", f"id1{s:04d}", f"clip{u % 3}",
+                                f"{u:05d}.wav")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_wav(path, _voice(rng, n, ENC_SAMPLE_RATE, f0, timbre),
+                      ENC_SAMPLE_RATE)
+    return root
+
+
+def write_vctk(root: str, n_speakers: int, n_utts: int) -> str:
+    """VCTK layout (txt/<spk>/<spk>_NNN.txt, wav48/<spk>/<spk>_NNN.wav at
+    22,050 Hz): texts of 25-185 characters cut from SENTENCES, len / 15
+    seconds of a voice of the speaker's own pitch and timbre."""
+    from tts_tpu_torch.audio.processor import write_wav
+
+    rng = np.random.default_rng(SEED + 20)
+    words = " ".join(SENTENCES).split()
+    for s in range(n_speakers):
+        spk = f"p{225 + s}"
+        f0 = 90 + 150 * s / max(n_speakers - 1, 1)
+        timbre = rng.uniform(0.1, 1.0, 4)
+        os.makedirs(os.path.join(root, "txt", spk), exist_ok=True)
+        os.makedirs(os.path.join(root, "wav48", spk), exist_ok=True)
+        for u, target in enumerate(np.linspace(25, 185, n_utts)):
+            start, text = (5 * s + 7 * u) % len(words), ""
+            while len(text) < target - 4:
+                text = (text + " " + words[start % len(words)]).strip()
+                start += 1
+            dur = float(np.clip(len(text) / 15.0, 1.5, 10.0))
+            name = f"{spk}_{u:03d}"
+            with open(os.path.join(root, "txt", spk, name + ".txt"), "w",
+                      encoding="utf-8") as f:
+                f.write(text + "\n")
+            write_wav(os.path.join(root, "wav48", spk, name + ".wav"),
+                      _voice(rng, int(dur * SAMPLE_RATE), SAMPLE_RATE, f0,
+                             timbre), SAMPLE_RATE)
+    return root
+
+
+def encoder_flops(n: int, frames: int, m: dict) -> float:
+    """Forward FLOPs of the speaker encoder on n mels of ``frames``: per
+    frame and layer the four gates' input and recurrent products,
+    2 x 4H x (in + H), and the projection, 2 x H x P."""
+    H, P = m["lstm_dim"], m["proj_dim"]
+    per_frame = sum(2 * 4 * H * ((m["input_dim"] if i == 0 else P) + H)
+                    + 2 * H * P for i in range(m["num_lstm_layers"]))
+    return float(per_frame) * n * frames
+
+
+def speaker_encoder_phase(dev, root: str, card: str) -> dict:
+    """Phase 19: bin/train_encoder on configs/speaker_encoder.json as
+    shipped, a step on the card against the CPU, then the d-vectors of the
+    multi-speaker TTS corpus into speakers.json."""
+    import copy
+
+    from tts_tpu_torch.audio import AudioProcessor
+    from tts_tpu_torch.bin.train_encoder import main as train_main
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.data.formatters import vctk
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.train.trainer_encoder import train_step
+    from tts_tpu_torch.utils.speakers import save_speaker_mapping
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    vox = write_voxceleb(os.path.join(root, "voxceleb1"), ENC_SPEAKERS,
+                         VOX_UTTERANCES)
+    corpus = write_vctk(os.path.join(root, "VCTK"), VCTK_SPEAKERS,
+                        VCTK_UTTERANCES)
+    write_s = time.perf_counter() - t0
+    c = load_config(os.path.join(here, "configs", "speaker_encoder.json"))
+    assert (c["num_speakers_in_batch"], c["num_utters_per_speaker"]) == (
+        ENC_SPEAKERS, ENC_UTTERANCES)
+    assert c["model"]["lstm_dim"] == 768 and c["model"]["num_lstm_layers"] == 3
+    c["datasets"] = [{"name": "voxceleb1", "path": vox,
+                      "meta_file_train": None}]
+    c["print_step"] = 1
+    cfg_path = os.path.join(root, "speaker_encoder.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_main(["--config_path", cfg_path, "--output_path",
+                          os.path.join(root, "enc_runs"), "--num_steps",
+                          str(ENC_STEPS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = trainer.step_stats
+    losses = [s["loss"] for s in stats]
+    assert len(losses) == ENC_STEPS and np.isfinite(losses).all(), losses
+    assert not any(build.LAUNCHES.values()), dict(build.LAUNCHES)
+    N, M = ENC_SPEAKERS, ENC_UTTERANCES
+    batch = trainer.dataset.storage[-1]["mels"]
+    frames = batch.shape[1]
+    fwd_flop = encoder_flops(N * M, frames, c["model"])
+    mels = torch.from_numpy(batch).to(dev)
+    prof = step_profile(lambda: train_step(trainer.module, trainer.optimizer,
+                                           mels, N, M))
+
+    # one step's loss on the card against the CPU, same weights and batch
+    # (the first ENC_CPU_SPEAKERS speakers: GE2E over those)
+    n = ENC_CPU_SPEAKERS
+    sub = batch[:n * M]
+    with torch.no_grad():
+        on_card = trainer.module["criterion"](trainer.model(
+            torch.from_numpy(sub).to(dev)).view(n, M, -1))
+        cpu_module = copy.deepcopy(trainer.module).cpu()
+        on_cpu = cpu_module["criterion"](cpu_module["model"](
+            torch.from_numpy(sub)).view(n, M, -1))
+    rel = abs(float(on_card) - float(on_cpu)) / abs(float(on_cpu))
+    log({"speaker_encoder_training": "configs/speaker_encoder.json as "
+                                     "shipped (GE2E softmax)",
+         "batch": [N, M, frames, 40], "steps": len(stats),
+         "corpus_write_s": write_s, "wall_s": wall_s,
+         "ge2e_losses": losses,
+         "ms_per_step": [1e3 * s["step_time"] for s in stats],
+         "ms_median_after_first": 1e3 * float(np.median(
+             [s["step_time"] for s in stats[1:]])),
+         "loader_ms": [1e3 * s["loader_time"] for s in stats],
+         "storage_replays": len(stats) - len(trainer.dataset.storage),
+         "forward_tflop": fwd_flop / 1e12,
+         "step_tflop_fwd_plus_2x_bwd": 3 * fwd_flop / 1e12,
+         "profiled_step": prof, "peak_mem_gb": peak_gb,
+         "loss_card_vs_cpu": {"speakers": n, "card": float(on_card),
+                              "cpu": float(on_cpu), "rel": rel},
+         "card": card})
+    assert rel < 1e-4, rel
+
+    # the d-vectors of every utterance of the TTS corpus (22,050 Hz,
+    # resampled to the encoder's 16 kHz by load_wav) into speakers.json
+    ap = AudioProcessor(**c["audio"])
+    mapping, embs = {}, {}
+    t0 = time.perf_counter()
+    for _, wav, speaker in vctk(corpus):
+        mel = ap.melspectrogram(ap.load_wav(wav))[None]
+        emb = trainer.compute_embeddings(mel, num_frames=160, overlap=0.5)
+        emb = emb[0].cpu().numpy()
+        assert emb.shape == (256,) and np.isfinite(emb).all()
+        assert abs(float(np.linalg.norm(emb)) - 1) < 1e-4
+        mapping[wav] = {"name": speaker, "embedding": emb.tolist()}
+        embs.setdefault(speaker, []).append(emb)
+    embed_s = time.perf_counter() - t0
+    save_speaker_mapping(root, mapping)
+    means = np.stack([np.mean(v, 0) for v in embs.values()])
+    within = float(np.mean([np.mean(np.stack(v) @ np.stack(v).T)
+                            for v in embs.values()]))
+    cross = float(np.mean((means @ means.T)[~np.eye(len(means), dtype=bool)]))
+    log({"speakers_json": len(mapping), "speakers": len(embs),
+         "embedding_s": embed_s, "cosine_within_speaker": within,
+         "cosine_across_speaker_means": cross})
+    return {"corpus": corpus, "speakers_json": os.path.join(
+        root, "speakers.json"), "encoder": trainer}
+
+
+def multispeaker_training_phase(dev, root: str, card: str,
+                                encoded: dict) -> dict:
+    """Phase 20: multi-speaker Glow-TTS (speaker ids), Tacotron2 reading
+    phase 19's d-vectors, and Tacotron2 with d-vectors and GST, each at its
+    shipped widths on the VCTK-style corpus through its training CLI."""
+    from tts_tpu_torch.bin.train_glow_tts import main as train_glow
+    from tts_tpu_torch.bin.train_tts import main as train_tts
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models import glow_tts as G
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    from tts_tpu_torch.ops.cuda import mas as MAS
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+    from tts_tpu_torch.train import trainer_glow, trainer_tts
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    datasets = [{"name": "vctk", "path": encoded["corpus"]}]
+    runs = {}
+
+    c = load_config(os.path.join(here, "configs", "glow_tts_ljspeech.json"))
+    c.update(datasets=datasets, use_speaker_embedding=True,
+             phoneme_cache_path=os.path.join(root, "phoneme_cache"),
+             epochs=MS_GLOW_EPOCHS)
+    glow_cfg = os.path.join(root, "glow_multispeaker.json")
+    with open(glow_cfg, "w") as f:
+        json.dump(c, f)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_glow(["--config_path", glow_cfg, "--output_path",
+                          os.path.join(root, "glow_runs")])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    steps = trainer.global_step
+    assert trainer.num_speakers == VCTK_SPEAKERS, trainer.num_speakers
+    assert steps >= 2 and launches.get(MAS.KERNEL, 0) == steps + 1, (
+        launches, steps)          # one a step, one for the DDI pass
+    assert launches.get(GEK.KERNEL, 0) == 0, launches
+    losses = [s["loss"] for s in trainer.step_stats]
+    assert np.isfinite(losses).all(), losses
+    ds = trainer.dataset
+    batch = trainer_glow.batch_to_device(ds.collate([ds[i] for i in range(
+        len(ds) - c["batch_size"], len(ds))]), dev)
+    assert batch["speaker_ids"].unique().numel() > 1
+    model = trainer.model.train()
+    prof = step_profile(lambda: trainer_glow.train_step(
+        model, trainer.optimizer, batch))
+    runs["glow"] = {"trainer": trainer, "config": glow_cfg}
+    log({"multispeaker_training": "glow_tts, speaker ids "
+                                  f"({trainer.num_speakers} speakers)",
+         "steps": steps, "losses": losses, "wall_s": wall_s,
+         "ms_per_step": [1e3 * s["step_time"] for s in trainer.step_stats],
+         "loader_ms": [1e3 * s["loader_time"] for s in trainer.step_stats],
+         "launches": launches, "profiled_longest_batch": prof,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "card": card})
+
+    for label, gst in (("taco2_dvec", False), ("taco2_dvec_gst", True)):
+        c = load_config(os.path.join(here, "configs",
+                                     "tacotron2_ljspeech.json"))
+        c.update(datasets=datasets, use_speaker_embedding=True,
+                 use_external_speaker_embedding_file=True,
+                 external_speaker_embedding_file=encoded["speakers_json"],
+                 use_gst=gst,
+                 phoneme_cache_path=os.path.join(root, "phoneme_cache"),
+                 # the registry's defaults, which the config check wants
+                 # spelled out with use_gst
+                 gst={"gst_style_tokens": 10, "gst_embedding_dim": 512,
+                      "gst_num_heads": 4},
+                 epochs=MS_TACO_EPOCHS, max_decoder_steps=MS_TACO_STEPS)
+        cfg_path = os.path.join(root, f"{label}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(c, f)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_tts(["--config_path", cfg_path, "--output_path",
+                             os.path.join(root, f"{label}_runs")])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        m = trainer.model
+        width = m.decoder.attention_rnn.input_size - 256
+        assert width == 512 + 256 + (512 if gst else 0), width
+        assert trainer.speaker_embedding_dim == 256
+        assert launches.get(TDK.KERNEL, 0) == 0, launches
+        # B7 runs only in the eval epochs' encoder (eval mode, no grad)
+        assert launches.get(BLK.KERNEL, 0) > 0, launches
+        stats = trainer.step_stats
+        ds = trainer.dataset(is_eval=False, r=trainer.r)
+        bs = c["gradual_training"][0][2]
+        assert len(stats) == MS_TACO_EPOCHS * (len(ds) // bs) > 0, len(stats)
+        assert all(np.isfinite(v) for s in stats for v in s.values()), stats
+        batch = trainer_tts.batch_to_device(ds.collate([ds[i] for i in range(
+            len(ds) - bs, len(ds))]), dev)
+        split = taco2_step_split(trainer, batch, trainer.r)
+        runs[label] = {"trainer": trainer, "config": cfg_path}
+        log({"multispeaker_training": label, "decoder_in": width,
+             "r": trainer.r, "batch": bs, "steps": len(stats),
+             "losses": [s["loss"] for s in stats], "wall_s": wall_s,
+             "ms_per_step": [1e3 * s["step_time"] for s in stats],
+             "loader_ms": [1e3 * s["loader_time"] for s in stats],
+             "fit_launches": launches, "profiled_longest_batch": split,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "card": card})
+    return runs
+
+
+def multispeaker_serving_phase(dev, root: str, card: str, encoded: dict,
+                               runs: dict) -> dict:
+    """Phase 21: the multi-speaker Glow checkpoint with Multiband-MelGAN
+    through the HTTP server (?speaker_id=) and the CLI (--speaker_id); the
+    d-vector and d-vector + GST Tacotron2 checkpoints through synthesis();
+    each against the CPU on the same weights."""
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.bin.synthesize import main as synthesize
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import (bucket_text_length,
+                                               compute_style_mel, synthesis,
+                                               text_to_seqvec)
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+    from tts_tpu_torch.server.server import create_server
+    from tts_tpu_torch.text import num_symbols
+    from tts_tpu_torch.train.checkpoint import latest_checkpoint
+    from tts_tpu_torch.utils.speakers import load_speaker_mapping
+
+    voc = build_models(root)
+    glow = runs["glow"]["trainer"]
+    c = load_config(runs["glow"]["config"])
+    c["num_speakers"] = glow.num_speakers
+    served_cfg = os.path.join(root, "glow_multispeaker_served.json")
+    with open(served_cfg, "w") as f:
+        json.dump(c, f)
+    ckpt = latest_checkpoint(glow.output_path)
+    synth = Synthesizer(ckpt, served_cfg, voc["voc"], voc["vocoder_config"],
+                        device=dev)
+    assert synth._packed is not None
+    text = "The birch canoe slid on the smooth planks."
+    server = create_server(synth, port=0, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    wavs, requests = {}, []
+    try:
+        build.reset_launches()
+        for speaker in (0, 1, 0, 1):
+            query = urllib.parse.urlencode({"text": text,
+                                            "speaker_id": speaker})
+            url = f"http://127.0.0.1:{port}/api/tts?{query}"
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(url, timeout=300) as r:
+                status, body = r.status, r.read()
+            ms = 1e3 * (time.perf_counter() - t0)
+            assert status == 200 and body[:4] == b"RIFF", status
+            wav, _ = read_wav(body)
+            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+            if speaker in wavs:
+                np.testing.assert_array_equal(wav, wavs[speaker])
+            wavs[speaker] = wav
+            requests.append({"speaker_id": speaker, "latency_ms": ms,
+                             "samples": len(wav)})
+        launches = dict(build.LAUNCHES)
+        # ids out of range or not integers get 400 on the host, and the
+        # process serves on (a lookup out of range on the card would be a
+        # device-side assert, fatal to every later request)
+        refused = {}
+        for bad in (str(glow.num_speakers), "-1", "x"):
+            query = urllib.parse.urlencode({"text": text, "speaker_id": bad})
+            try:
+                urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/api/tts?{query}", timeout=300)
+                refused[bad] = 200
+            except urllib.error.HTTPError as e:
+                refused[bad] = e.code
+        assert all(code == 400 for code in refused.values()), refused
+        query = urllib.parse.urlencode({"text": text, "speaker_id": 1})
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/tts?{query}",
+                                    timeout=300) as r:
+            np.testing.assert_array_equal(read_wav(r.read())[0], wavs[1])
+        torch.cuda.synchronize()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    differ = (len(wavs[0]) != len(wavs[1])
+              or float(np.abs(wavs[0] - wavs[1]).max()) > 1e-3)
+    assert differ, "two speakers gave the same audio"
+    for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+        assert launches.get(name, 0) > 0, f"{name} was not launched"
+    assert launches.get(GEK.KERNEL, 0) == 0, launches   # B3 refuses speakers
+    log({"multispeaker_glow_serving": requests, "launches": launches,
+         "bad_speaker_id_status": refused,
+         "first_request_ms": requests[0]["latency_ms"],
+         "warm_request_ms": [r["latency_ms"] for r in requests[1:]],
+         "card": card})
+
+    # the CLI with --speaker_id, and the mel on the card against the CPU
+    # (noise scale 0: the same noise on both)
+    path = synthesize([text, served_cfg, ckpt, os.path.join(root, "cli_ms"),
+                       "--vocoder_path", voc["voc"], "--vocoder_config_path",
+                       voc["vocoder_config"], "--speaker_id", "1"])
+    wav, _ = read_wav(path)
+    assert len(wav) == len(wavs[1])
+    np.testing.assert_allclose(wav, wavs[1], rtol=0, atol=2.0 / 32767)
+    quiet = dict(c, inference_noise_scale=0.0)
+    cpu = Synthesizer(ckpt, served_cfg, device="cpu")
+    glow_err = {}
+    for speaker in (0, 1):
+        got = synthesis(synth.model, text, quiet, dev, speaker_id=speaker)
+        ref = synthesis(cpu.model, text, quiet, torch.device("cpu"),
+                        speaker_id=speaker)
+        got, ref = got["postnet_outputs"], ref["postnet_outputs"]
+        assert got.shape == ref.shape, (got.shape, ref.shape)
+        err = float(np.abs(got - ref).max())
+        assert err <= TOL * float(np.abs(ref).max()), (err, speaker)
+        glow_err[speaker] = err
+    log({"multispeaker_glow_cli": os.path.basename(path),
+         "mel_card_vs_cpu_max_abs": glow_err})
+
+    # where a warm request's time goes (B=1, without HTTP): the encoder
+    # module (B3 refuses speakers), the whole text + Glow, the vocoder;
+    # each ends in a copy to the host or a synchronize
+    model, gen = synth.model, torch.Generator(dev)
+    seq = torch.from_numpy(text_to_seqvec(text, c).astype(np.int64))[None]
+    seq, lengths = seq.to(dev), torch.tensor([seq.shape[1]], device=dev)
+    g = model.speaker_vector(torch.tensor([1], device=dev))
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.encode(seq, lengths, g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mel = synthesis(model, text, c, dev, generator=gen.manual_seed(0),
+                        speaker_id=1)["postnet_outputs"]
+        t2 = time.perf_counter()
+        synth._vocode(mel)
+        t3 = time.perf_counter()
+        log({"multispeaker_request_breakdown_ms": {
+            "encoder_module": 1e3 * (t1 - t0),
+            "text_and_glow": 1e3 * (t2 - t1), "vocoder": 1e3 * (t3 - t2)},
+            "mel_frames": len(mel)})
+
+    # Tacotron2 with d-vectors, and with d-vectors and GST, through
+    # synthesis() (tts_tpu's Synthesizer serves neither: C20, C21)
+    mapping = load_speaker_mapping(encoded["speakers_json"])
+    wav_a, wav_b = sorted(mapping)[0], sorted(mapping)[-1]
+    bucket = bucket_text_length(len(text_to_seqvec(text, load_config(
+        runs["taco2_dvec"]["config"]))))
+    out = {}
+    for label in ("taco2_dvec", "taco2_dvec_gst"):
+        tc = load_config(runs[label]["config"])
+        trainer = runs[label]["trainer"]
+        ckpt = latest_checkpoint(trainer.output_path)
+        models = {}
+        for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = setup_model(num_symbols(tc["use_phonemes"]),
+                            trainer.num_speakers, tc,
+                            speaker_embedding_dim=256)
+            m.load_state_dict(torch.load(ckpt, map_location="cpu",
+                                         weights_only=True)["model"])
+            m.set_r(trainer.r)
+            models[key] = m.to(d).eval()
+        kw = {"style_wav": wav_b} if tc["use_gst"] else {}
+        results, ms = {}, []
+        build.reset_launches()
+        for wav_path in (wav_a, wav_b, wav_a):
+            emb = np.asarray(mapping[wav_path]["embedding"], np.float32)
+            t0 = time.perf_counter()
+            res = synthesis(models["card"], text, tc, dev, ap=trainer.ap,
+                            speaker_embedding=emb, **kw)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            results.setdefault(wav_path, res["postnet_outputs"])
+        launches = dict(build.LAUNCHES)
+        assert launches.get(BLK.KERNEL, 0) == 3 * (1 + bucket), launches
+        assert launches.get(TDK.KERNEL, 0) == 0, launches
+        a, b = results[wav_a], results[wav_b]
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+        speakers_differ = a.shape != b.shape or float(
+            np.abs(a - b).max()) > 1e-4
+        assert speakers_differ, label
+
+        # card against CPU, same weights, d-vector and style, the stopnet
+        # silenced (threshold 2: no step is masked): per decoder step, the
+        # first step whose frames differ by more than 1e-4 of the largest
+        # magnitude (the decode is autoregressive)
+        emb = np.asarray(mapping[wav_a]["embedding"], np.float32)
+        runs_out = {}
+        for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = models[key]
+            seq = torch.from_numpy(text_to_seqvec(text, tc).astype(np.int64)
+                                   )[None].to(d)
+            cond = {"speaker_embeddings": torch.from_numpy(emb)[None].to(d)}
+            if tc["use_gst"]:
+                cond["style_mel"] = torch.from_numpy(
+                    compute_style_mel(wav_b, trainer.ap)).to(d)
+            model.stop_threshold = 2.0
+            runs_out[key] = model.inference(
+                seq, max_decoder_steps=MS_TACO_STEPS, **cond)
+        steps = MS_TACO_STEPS
+        frames = [r["decoder_outputs"][0].reshape(steps, -1).cpu()
+                  for r in (runs_out["card"], runs_out["cpu"])]
+        scale = float(frames[1].abs().max())
+        per_step = (frames[0] - frames[1]).abs().amax(1).numpy()
+        bad = np.nonzero(per_step > TOL * scale)[0]
+        apart = int(bad[0]) if len(bad) else None
+        frames_served = [len(x) for x in results.values()]
+        log({f"{label}_serving": {"first_ms": ms[0], "warm_ms": ms[1:],
+                                  "launches": launches,
+                                  "text_bucket": bucket,
+                                  "frames": frames_served},
+             "card_vs_cpu_first_step_apart_by_1e-4": apart,
+             "card_vs_cpu_max_abs_16_steps": float(per_step[:16].max()),
+             "card_vs_cpu_max_abs_all_steps": float(per_step.max()),
+             "scale": scale, "card": card})
+        assert apart is None or apart >= 16, apart
+        out[label] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2601,6 +3165,10 @@ def main() -> int:
         vocoders = {"pwgan": pwgan_training_phase(dev, root, card),
                     "istft": istft_training_phase(dev, root, card)}
         vocoder_serving_phase(dev, root, card, vocoders)
+    with tempfile.TemporaryDirectory() as root:
+        encoded = speaker_encoder_phase(dev, root, card)
+        ms_runs = multispeaker_training_phase(dev, root, card, encoded)
+        multispeaker_serving_phase(dev, root, card, encoded, ms_runs)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",

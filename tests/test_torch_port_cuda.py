@@ -802,3 +802,166 @@ def test_pwgan_rwd_gan_step_on_the_card(cuda):
     assert all(torch.isfinite(torch.tensor(v)) for v in losses.values())
     assert any(not torch.equal(p, q) for p, q in zip(gen.parameters(), g0))
     assert any(not torch.equal(p, q) for p, q in zip(disc.parameters(), d0))
+
+
+@pytest.mark.cuda
+def test_speaker_encoder_on_the_card(cuda):
+    """The shipped encoder (3 x LSTM 768 -> 256, cuDNN) on 20 mels of 161
+    frames: d-vectors, the sliding-window embedding of a longer mel and one
+    GE2E training step's loss and updates against the CPU; no hand-written
+    kernel launches."""
+    import copy
+
+    from torch import nn
+
+    from tts_tpu_torch.losses.ge2e import GE2ELoss
+    from tts_tpu_torch.models.speaker_encoder import SpeakerEncoder
+    from tts_tpu_torch.train.optim import make_optimizer
+    from tts_tpu_torch.train.trainer_encoder import train_step
+    torch.manual_seed(0)
+    cpu = nn.ModuleDict({"model": SpeakerEncoder(), "criterion": GE2ELoss()})
+    dev = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    mels = torch.randn(20, 161, 40, generator=g)
+    long = torch.randn(2, 400, 40, generator=g)
+    before = sum(build.LAUNCHES.values())
+    with torch.no_grad():
+        _close(dev["model"](mels.to(cuda)), cpu["model"](mels))
+        _close(dev["model"].compute_embedding(long.to(cuda)),
+               cpu["model"].compute_embedding(long))
+    losses = [train_step(m, make_optimizer(m, lr=1e-4, grad_clip=3.0),
+                         x, 4, 5)
+              for m, x in ((cpu, mels), (dev, mels.to(cuda)))]
+    torch.testing.assert_close(losses[1].cpu(), losses[0], rtol=1e-5,
+                               atol=0)
+    for (name, p), q in zip(cpu.named_parameters(), dev.parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=0,
+                                   atol=1e-6, msg=name)
+    assert sum(build.LAUNCHES.values()) == before
+
+
+@pytest.mark.cuda
+def test_multispeaker_models_refuse_b3_and_b8_on_the_card(cuda):
+    """A multi-speaker Glow-TTS infers on the card without B3 (its encoder
+    module), and Tacotron2 with d-vectors and GST without B8 (the plain
+    decode) but with B7 (1 + T launches); each matches the CPU."""
+    from tts_tpu_torch.infer.synthesis import run_model
+    from tts_tpu_torch.models.glow_tts import GlowTTS
+    from tts_tpu_torch.models.tacotron2 import Tacotron2
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    torch.manual_seed(0)
+    glow = GlowTTS(num_chars=60, num_speakers=4, hidden_channels_enc=32,
+                   hidden_channels_dec=32, filter_channels=64,
+                   filter_channels_dp=48, num_layers_enc=2,
+                   num_flow_blocks_dec=2, num_block_layers=2).eval()
+    with torch.no_grad():     # pin the durations (ceil flips on an ulp)
+        glow.encoder.duration_predictor.proj.weight.zero_()
+        glow.encoder.duration_predictor.proj.bias.fill_(1.5)
+    text = torch.randint(1, 60, (2, 21), generator=torch.Generator()
+                         .manual_seed(4))
+    lengths, ids = torch.tensor([21, 13]), torch.tensor([3, 1])
+    want = glow.inference(text, lengths, speaker_ids=ids, noise_scale=0.0,
+                          y_max_length=96)
+    glow.to(cuda).store_inverse()
+    before = build.LAUNCHES[GEK.KERNEL]
+    got = glow.inference(text.to(cuda), lengths.to(cuda),
+                         speaker_ids=ids.to(cuda), noise_scale=0.0,
+                         y_max_length=96)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GEK.KERNEL] == before
+    assert torch.equal(got["mel_lengths"].cpu(), want["mel_lengths"])
+    _close(got["model_outputs"], want["model_outputs"])
+
+    c = {"model": "tacotron2"}
+    seq = torch.randint(1, 60, (1, 32), generator=torch.Generator()
+                        .manual_seed(5))
+    for kw, cond in (
+            (dict(num_speakers=3, external_speaker_dim=16),
+             {"speaker_embedding": torch.randn(16).numpy()}),
+            (dict(use_gst=True, gst_embedding_dim=64, gst_num_heads=2),
+             {"style_mel": torch.randn(1, 45, 80).numpy()})):
+        torch.manual_seed(1)
+        taco = Tacotron2(num_chars=60, r=2, encoder_dim=64, embedding_dim=64,
+                         attn_dim=32, max_decoder_steps=12, **kw).eval()
+        want = run_model(taco, seq, c, **cond)
+        taco.to(cuda)
+        before = dict(build.LAUNCHES)
+        got = run_model(taco, seq.to(cuda), c, **cond)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[TDK.KERNEL] == before.get(TDK.KERNEL, 0)
+        assert (build.LAUNCHES[BLK.KERNEL] - before.get(BLK.KERNEL, 0)
+                == 1 + seq.shape[1])
+        for key in ("decoder_outputs", "stop_logits", "alignments"):
+            _close(got[key], want[key])
+
+
+@pytest.mark.cuda
+def test_gst_on_the_card(cuda):
+    """GST at full width (512, 4 heads, 10 tokens) on odd and even mel
+    lengths, eval and train mode (running statistics), against the CPU."""
+    import copy
+
+    from tts_tpu_torch.models.gst import GST
+    torch.manual_seed(0)
+    cpu = GST()
+    dev = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(2)
+    for T in (117, 120):
+        x = torch.randn(4, T, 80, generator=g)
+        with torch.no_grad():
+            _close(dev.eval()(x.to(cuda)), cpu.eval()(x))
+        _close(dev.train()(x.to(cuda)).detach(), cpu.train()(x).detach())
+        for a, b in zip(dev.encoder.bns, cpu.encoder.bns):
+            _close(a.running_var, b.running_var)
+            _close(a.running_mean, b.running_mean)
+
+
+@pytest.mark.cuda
+def test_server_refuses_bad_speaker_id_and_serves_on(cuda, tmp_path):
+    """A 2-speaker Glow-TTS served on the card: speaker ids 2, -1 and "x"
+    get 400 and reach nothing on the card; the next request (speaker 1)
+    still returns audio, and the process's CUDA context still works."""
+    import json
+    import os
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.server.server import create_server
+    from tts_tpu_torch.text import num_symbols
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    c = load_config(os.path.join(root, "configs", "glow_tts_ljspeech.json"))
+    c.update(hidden_channels_encoder=32, hidden_channels_decoder=32,
+             use_phonemes=False, num_speakers=2)
+    c["audio"]["griffin_lim_iters"] = 4
+    torch.manual_seed(0)
+    model = setup_model(num_symbols(False), 2, c)
+    (tmp_path / "glow.json").write_text(json.dumps(dict(c)))
+    torch.save({"model": model.state_dict()}, tmp_path / "glow.pt")
+    synth = Synthesizer(str(tmp_path / "glow.pt"),
+                        str(tmp_path / "glow.json"), device=cuda)
+    server = create_server(synth, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{server.server_address[1]}/api/tts?"
+           + "text=Hello%20world.&speaker_id=")
+    try:
+        for bad in ("2", "-1", "x"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(url + urllib.parse.quote(bad),
+                                       timeout=120)
+            assert e.value.code == 400, bad
+        with urllib.request.urlopen(url + "1", timeout=300) as r:
+            wav, _ = read_wav(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert len(wav) > 0 and abs(wav).max() > 0
+    torch.cuda.synchronize()

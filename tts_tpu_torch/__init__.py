@@ -4,10 +4,10 @@ The layout mirrors ``tts_tpu``: each module sits at the same path as its JAX
 counterpart. The port imports nothing of ``tts_tpu`` (nor JAX or flax); the
 pure-Python modules it needs (text frontend, config loader, numpy audio) are
 copied. Every Pallas kernel of ``tts_tpu`` (on the ported paths: serving
-Glow-TTS or Tacotron2 + Multiband-MelGAN from the synthesis CLI or the
-server, training Glow-TTS, Tacotron2, and Multiband-MelGAN against the
-multiscale MelGAN discriminator) has a hand-written CUDA kernel under
-``ops/cuda/`` beside a plain PyTorch version of the same function.
+Glow-TTS or Tacotron2, one speaker or many, + Multiband-MelGAN from the
+synthesis CLI or the server, training Glow-TTS, Tacotron2, the GAN vocoders
+and the speaker encoder) has a hand-written CUDA kernel under ``ops/cuda/``
+beside a plain PyTorch version of the same function.
 """
 
 from __future__ import annotations

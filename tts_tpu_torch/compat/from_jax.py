@@ -21,7 +21,10 @@ the ParallelWaveGAN converters (flax and torch both norm those convs per
 output channel) and ``rwd_state_dict_from_jax``;
 ``istft_melgan_state_dict_from_jax`` folds as the MelGAN one does;
 ``tacotron2_state_dict_from_jax`` packs the per-gate LSTM kernels and adds
-the zero biases tts_tpu leaves out, so it maps params only. The other
+the zero biases tts_tpu leaves out, so it maps params only, and so do
+``gst_state_dict_from_jax`` (its GRU; the input features permuted) and
+``speaker_encoder_state_dict_from_jax`` (the speaker encoder's LSTMs;
+``speaker_loss_state_dict_from_jax`` its loss's ``w`` and ``b``). The other
 direction, port -> tts_tpu, is ``tts_tpu/compat/torch_port.py`` in the JAX
 package. ``state_dict_from_tts_tpu`` picks the converter for a whole
 tts_tpu checkpoint (``train/checkpoint.py::load_tts_tpu_checkpoint``) from
@@ -91,10 +94,11 @@ def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def glow_tts_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
     """``tts_tpu`` GlowTTS params (transformer encoder with prenet,
-    mean_only, single speaker: what its registry builds) ->
-    the port's ``GlowTTS`` state dict. Weight-normed convs transfer as they
-    are: flax WeightNorm on the (k, in, out) kernel norms over all axes but
-    ``out``, which is torch's ``dim=0`` after the transpose."""
+    mean_only: what its registry builds; with speakers, ``emb_g`` and every
+    WN's ``cond_layer``) -> the port's ``GlowTTS`` state dict. Weight-normed
+    convs transfer as they are: flax WeightNorm on the (k, in, out) kernel
+    norms over all axes but ``out``, which is torch's ``dim=0`` after the
+    transpose."""
     sd: Dict[str, np.ndarray] = {}
 
     def conv(dst: str, node: Tree) -> None:
@@ -139,6 +143,8 @@ def glow_tts_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
         conv(f"encoder.encoder.ffn_layers.{i}.conv_2", tr[f"ffn_{i}"]["conv2"])
         ln(f"encoder.encoder.norm_layers_2.{i}", tr[f"ln2_{i}"])
     conv("encoder.proj_m", enc["proj_mean"])
+    if "emb_g" in params:
+        sd["emb_g.weight"] = np.asarray(params["emb_g"]["embedding"])
     dp, dst = enc["duration_predictor"], "encoder.duration_predictor"
     conv(f"{dst}.conv_1", dp["conv1"])
     ln(f"{dst}.norm_1", dp["ln1"])
@@ -162,6 +168,8 @@ def glow_tts_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
         for j in range(n_wn):
             wn_conv(f"{cdst}.wn.in_layers.{j}", wn, f"in_{j}")
             wn_conv(f"{cdst}.wn.res_skip_layers.{j}", wn, f"res_skip_{j}")
+        if "cond_layer" in wn:
+            wn_conv(f"{cdst}.wn.cond_layer", wn, "cond_layer")
     return _tensors(sd)
 
 
@@ -425,9 +433,10 @@ def _decoder_state_dict(sd: Dict[str, np.ndarray], dst: str, dec: Tree,
 
 def tacotron2_state_dict_from_jax(params: Tree, batch_stats: Tree
                                   ) -> Dict[str, torch.Tensor]:
-    """``tts_tpu`` Tacotron2 ``params`` and ``batch_stats`` (one speaker, no
-    GST, location-sensitive attention) -> the port's
-    ``Tacotron2`` state dict, Mozilla names. tts_tpu's ConvBN convs have no
+    """``tts_tpu`` Tacotron2 ``params`` and ``batch_stats`` (location-
+    sensitive attention; with the ``speaker_embedding`` and the GST layer
+    where the tree has them) -> the port's ``Tacotron2`` state dict,
+    Mozilla names. tts_tpu's ConvBN convs have no
     bias (BatchNorm cancels it), so theirs map to zero; the attention's
     ``v`` likewise. The coarse (DDC) and backward decoders map when the
     tree has them. ``port_tacotron2`` in tts_tpu is the inverse."""
@@ -454,12 +463,115 @@ def tacotron2_state_dict_from_jax(params: Tree, batch_stats: Tree
     for i in range(len(post_p)):
         convbn(f"postnet.convolutions.{i}", post_p[f"conv_{i}"],
                post_s[f"conv_{i}"])
+    if "speaker_embedding" in params:
+        sd["speaker_embedding.weight"] = np.asarray(
+            params["speaker_embedding"]["embedding"])
+    if "gst_layer" in params:
+        sd.update(_gst_state_dict(params["gst_layer"],
+                                  batch_stats["gst_layer"], "gst_layer."))
     out = _tensors(sd)
     for key in list(out):
         if key.endswith(".running_var"):
             out[key[:-len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return out
+
+
+def _conv2d(kernel: np.ndarray) -> np.ndarray:
+    """flax Conv (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)."""
+    return np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1)))
+
+
+def _gru(sd: Dict[str, np.ndarray], dst: str, cell: Tree,
+         feature_order=None) -> None:
+    """flax ``GRUCell`` (``ir``/``iz``/``in`` with biases, ``hr``/``hz``
+    without, ``hn`` with) -> torch's packed ``weight_ih`` / ``weight_hh``
+    (3H, in), gates r, z, n; ``bias_hh`` zero on r and z. ``feature_order``
+    permutes the input features (torch's column j reads flax's row
+    ``feature_order[j]``)."""
+    w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"])
+                           for g in "rzn"], axis=1)
+    if feature_order is not None:
+        w_ih = w_ih[feature_order]
+    sd[f"{dst}.weight_ih_l0"] = w_ih.T
+    sd[f"{dst}.weight_hh_l0"] = np.concatenate(
+        [np.asarray(cell[f"h{g}"]["kernel"]) for g in "rzn"], axis=1).T
+    sd[f"{dst}.bias_ih_l0"] = np.concatenate(
+        [np.asarray(cell[f"i{g}"]["bias"]) for g in "rzn"])
+    b_hn = np.asarray(cell["hn"]["bias"])
+    sd[f"{dst}.bias_hh_l0"] = np.concatenate(
+        [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+
+
+def _gst_state_dict(params: Tree, stats: Tree, prefix: str
+                    ) -> Dict[str, np.ndarray]:
+    """``tts_tpu`` GST params and ``batch_stats`` -> the port's ``GST``
+    entries under ``prefix``. The GRU's input features are (mel, channel)
+    in flax and (channel, mel) in the port: its input kernel is permuted."""
+    sd: Dict[str, np.ndarray] = {}
+    ref, ref_s = params["ref_encoder"], stats["ref_encoder"]
+    n = sum(1 for k in ref if k.startswith("conv_"))
+    for i in range(n):
+        sd[f"{prefix}encoder.convs.{i}.weight"] = _conv2d(
+            np.asarray(ref[f"conv_{i}"]["kernel"]))
+        sd[f"{prefix}encoder.convs.{i}.bias"] = np.asarray(
+            ref[f"conv_{i}"]["bias"])
+        _batchnorm(sd, f"{prefix}encoder.bns.{i}", ref[f"bn_{i}"],
+                   ref_s[f"bn_{i}"])
+    C = np.asarray(ref[f"conv_{n - 1}"]["kernel"]).shape[-1]
+    M = np.asarray(ref["GRUCell_0"]["ir"]["kernel"]).shape[0] // C
+    # torch column c * M + m reads flax row m * C + c
+    order = np.arange(M * C).reshape(M, C).T.reshape(-1)
+    _gru(sd, f"{prefix}encoder.recurrence", ref["GRUCell_0"], order)
+    sd[f"{prefix}style_token_layer.style_tokens"] = np.asarray(
+        params["style_tokens"])
+    att = params["style_attention"]
+    for name in ("W_query", "W_key", "W_value"):
+        sd[f"{prefix}style_token_layer.attention.{name}.weight"] = \
+            np.asarray(att[name]["kernel"]).T
+    return sd
+
+
+def gst_state_dict_from_jax(params: Tree, batch_stats: Tree
+                            ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``GST`` params and ``batch_stats`` -> the port's ``GST``
+    state dict."""
+    out = _tensors(_gst_state_dict(params, batch_stats, ""))
+    for key in list(out):
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Speaker encoder
+# ---------------------------------------------------------------------------
+
+def speaker_encoder_state_dict_from_jax(params: Tree
+                                        ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``SpeakerEncoder`` params (``layer_{i}`` with an
+    ``OptimizedLSTMCell_0`` and ``proj``) -> the port's state dict in
+    Mozilla's names (``layers.{i}.lstm.*_l0``, ``layers.{i}.linear.weight``).
+    The whole LSTM bias goes to ``bias_ih_l0``, zeros to ``bias_hh_l0``;
+    tts_tpu_torch's encoder holds the latter fixed, so this maps params
+    only (a gradient tree maps leaf by leaf but for that zero)."""
+    sd: Dict[str, np.ndarray] = {}
+    n = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n):
+        layer = params[f"layer_{i}"]
+        _lstm(sd, f"layers.{i}.lstm", layer["OptimizedLSTMCell_0"], "_l0")
+        sd[f"layers.{i}.linear.weight"] = np.asarray(
+            layer["proj"]["kernel"]).T
+    return _tensors(sd)
+
+
+def speaker_loss_state_dict_from_jax(params: Tree
+                                     ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` ``GE2ELoss`` / ``AngleProtoLoss`` params -> the port's
+    (0-d ``w`` and ``b``)."""
+    return {k: torch.tensor(float(np.asarray(params[k])))
+            for k in ("w", "b")}
 
 
 def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
@@ -472,8 +584,13 @@ def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
     ``melgan_state_dict_from_jax``, with the upsample factors and residual
     stacks of the config's generator; a TTS config's ``glow_tts`` or
     ``tacotron2`` through their converters (Tacotron2 with the checkpoint's
-    ``batch_stats``)."""
+    ``batch_stats``); a speaker-encoder config (its ``model`` a dict of
+    widths) through ``speaker_encoder_state_dict_from_jax`` on the
+    checkpoint's ``enc`` tree (the loss's ``w`` and ``b``, under ``loss``,
+    through ``speaker_loss_state_dict_from_jax``)."""
     params = ckpt["params"]
+    if isinstance(c.get("model"), dict):
+        return speaker_encoder_state_dict_from_jax(params["enc"])
     if "generator_model" in c:
         from tts_tpu_torch.models.vocoder.registry import setup_generator
         name = c["generator_model"].lower()

@@ -16,14 +16,12 @@ from __future__ import annotations
 
 import glob
 import os
-import queue as _queue
 import random
-import threading
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-PREFETCH = 2          # batches collated ahead
+from tts_tpu_torch.data.prefetch import prefetch
 
 
 def load_wav_data(data_path: str, eval_split_size: int
@@ -97,29 +95,10 @@ class GANDataset:
         if n_batches == 0:
             return
 
-        q: _queue.Queue = _queue.Queue(maxsize=PREFETCH)
-        done = object()
+        def make_batch(b: int) -> Dict[str, Dict[str, np.ndarray]]:
+            sel = idxs[b * batch_size:(b + 1) * batch_size]
+            return {"G": self.collate([self[i] for i in sel]),
+                    "D": self.collate([self[self.G_to_D_mappings[i]]
+                                       for i in sel])}
 
-        def producer():
-            try:
-                for b in range(n_batches):
-                    sel = idxs[b * batch_size:(b + 1) * batch_size]
-                    g = self.collate([self[i] for i in sel])
-                    d = self.collate([self[self.G_to_D_mappings[i]]
-                                      for i in sel])
-                    q.put({"G": g, "D": d})
-            except Exception as e:      # handed to the consumer, raised there
-                q.put(e)
-            finally:
-                q.put(done)
-
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
-        while True:
-            item = q.get()
-            if item is done:
-                break
-            if isinstance(item, Exception):
-                raise item
-            yield item
-        t.join()
+        yield from prefetch(make_batch, n_batches)

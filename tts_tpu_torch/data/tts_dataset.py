@@ -3,28 +3,30 @@
 audio processor).
 
 Capability parity with Mozilla TTS's TTS/tts/datasets/TTSDataset.py:12-288
-for what single-speaker, single-device Glow-TTS training reads (phoneme .npy
+for what single-device Glow-TTS and Tacotron2 training reads (phoneme .npy
 caching l.83-113, length sort l.149-179, collate computing mels in the loader
 l.187-288). Batches are padded to *bucketed* (text, frame) shapes (multiples
 of ``SHAPE_PAD`` and the reduction factor), numpy and time-major, as in
-tts_tpu; the trainer moves them to the device and to (B, C, T).
+tts_tpu; the trainer moves them to the device and to (B, C, T). With
+``speaker_id_mapping`` (speaker name -> id) a batch carries
+``speaker_ids``; with ``speaker_embedding_mapping`` (wav path -> d-vector,
+from speakers.json) ``speaker_embeddings``. Sharding the dataset across
+data-parallel workers is not ported yet.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-import threading
-import queue as _queue
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from tts_tpu_torch.data.prefetch import prefetch
 from tts_tpu_torch.text import phoneme_to_sequence, text_to_sequence
 
 SHAPE_PAD = 32      # text and frame lengths are padded to multiples of this
-PREFETCH = 2        # collated batches the loader thread keeps ready
 
 
 def _round_up(x: int, m: int) -> int:
@@ -45,6 +47,9 @@ class TTSDataset:
         phoneme_cache_path: Optional[str] = None,
         phoneme_language: str = "en-us",
         enable_eos_bos: bool = False,
+        speaker_id_mapping: Optional[Dict[str, int]] = None,
+        speaker_embedding_mapping: Optional[Dict[str, Sequence[float]]]
+        = None,
     ):
         self.ap = ap
         self.items = [list(it) for it in items]
@@ -56,6 +61,8 @@ class TTSDataset:
         self.phoneme_cache_path = phoneme_cache_path
         self.phoneme_language = phoneme_language
         self.enable_eos_bos = enable_eos_bos
+        self.speaker_id_mapping = speaker_id_mapping
+        self.speaker_embedding_mapping = speaker_embedding_mapping
         if phoneme_cache_path:
             os.makedirs(phoneme_cache_path, exist_ok=True)
         self.sort_items()
@@ -103,11 +110,12 @@ class TTSDataset:
         return len(self.items)
 
     def __getitem__(self, idx: int) -> dict:
-        text, wav_file = self.items[idx][:2]
+        text, wav_file, speaker_name = self.items[idx][:3]
         return {
             "text": self.text_ids(text),
             "wav": self.ap.load_wav(wav_file).astype(np.float32),
             "item_idx": wav_file,
+            "speaker_name": speaker_name,
         }
 
     # -- collate -----------------------------------------------------------
@@ -144,7 +152,7 @@ class TTSDataset:
         # any of its r frames is a stop frame (≙ train format_data reshape)
         stop = stop.reshape(B, T_mel // self.r, self.r).max(axis=-1)
 
-        return {
+        batch = {
             "text": text,
             "text_lengths": text_lens,
             "mel": mel,
@@ -152,6 +160,15 @@ class TTSDataset:
             "stop_targets": stop,
             "item_idxs": [s["item_idx"] for s in samples],
         }
+        if self.speaker_id_mapping is not None:
+            batch["speaker_ids"] = np.array(
+                [self.speaker_id_mapping[s["speaker_name"]] for s in samples],
+                dtype=np.int32)
+        if self.speaker_embedding_mapping is not None:
+            batch["speaker_embeddings"] = np.stack(
+                [np.asarray(self.speaker_embedding_mapping[s["item_idx"]],
+                            dtype=np.float32) for s in samples])
+        return batch
 
     # -- iteration ---------------------------------------------------------
 
@@ -172,26 +189,8 @@ class TTSDataset:
         if n_batches == 0:
             return
 
-        q: _queue.Queue = _queue.Queue(maxsize=PREFETCH)
-        _SENTINEL = object()
+        def make_batch(b: int) -> Dict[str, np.ndarray]:
+            sel = idxs[b * batch_size: (b + 1) * batch_size]
+            return self.collate([self[i] for i in sel])
 
-        def producer():
-            try:
-                for b in range(n_batches):
-                    sel = idxs[b * batch_size: (b + 1) * batch_size]
-                    q.put(self.collate([self[i] for i in sel]))
-            except Exception as e:  # surface loader errors to consumer
-                q.put(e)
-            finally:
-                q.put(_SENTINEL)
-
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
-        while True:
-            item = q.get()
-            if item is _SENTINEL:
-                break
-            if isinstance(item, Exception):
-                raise item
-            yield item
-        t.join()
+        yield from prefetch(make_batch, n_batches)

@@ -38,7 +38,8 @@ from tts_tpu_torch import DeviceLike, resolve_device
 from tts_tpu_torch.audio import AudioProcessor
 from tts_tpu_torch.compat.from_jax import state_dict_from_tts_tpu
 from tts_tpu_torch.config import load_config
-from tts_tpu_torch.infer.synthesis import TEXT_BUCKETS, synthesis
+from tts_tpu_torch.infer.synthesis import (TEXT_BUCKETS, check_speaker_id,
+                                           synthesis)
 from tts_tpu_torch.models.glow_tts import GlowTTS
 from tts_tpu_torch.models.registry import setup_model
 from tts_tpu_torch.models.tacotron2 import Tacotron2
@@ -159,10 +160,15 @@ class Synthesizer:
 
     def tts(self, text: str, speaker_id: Optional[int] = None) -> np.ndarray:
         """Text -> waveform, sentence by sentence with silence joins; the
-        vocoder's, or Griffin-Lim's when none is served. ``speaker_id`` is
-        tts_tpu's argument: its models take it as ``speaker_ids`` and a
-        single-speaker model (the only kind the port builds; the registry
-        refuses more) ignores it, so it changes nothing here."""
+        vocoder's, or Griffin-Lim's when none is served. ``speaker_id``
+        picks the speaker of a multi-speaker model (built with the config's
+        ``num_speakers``); a single-speaker model ignores it. As in
+        tts_tpu, this is the only conditioning ``tts`` passes: a model that
+        reads external d-vectors or a GST style mel cannot be served
+        through it (ROADMAP C20, C21); ``infer/synthesis.py::synthesis``
+        takes both. An id outside the model's speakers raises ValueError
+        before anything runs (``check_speaker_id``)."""
+        check_speaker_id(self.model, speaker_id)
         start = time.time()
         wavs: List[np.ndarray] = []
         use_gl = self.vocoder_model is None
@@ -172,7 +178,8 @@ class Synthesizer:
                 self.model, sentence, self.tts_config, self.device,
                 generator=generator, ap=self.ap, use_griffin_lim=use_gl,
                 do_trim_silence=self.tts_config.get("do_trim_silence",
-                                                    False))
+                                                    False),
+                speaker_id=speaker_id)
             wavs.append(result["wav"] if use_gl
                         else self._vocode(result["postnet_outputs"]))
             wavs.append(np.zeros(10000, np.float32))  # inter-sentence gap
@@ -192,11 +199,13 @@ class Synthesizer:
         bucket's first run still costs ~40 ms more than its second after
         another bucket has warmed the process, and the other five buckets
         add ~0.04 s to the prewarm (``chip_smoke.py``'s prewarm phase).
+        A multi-speaker model prewarms as speaker 0 (tts_tpu's default).
         Returns its seconds (the server's ``--prewarm``)."""
         t0 = time.time()
+        speaker_id = 0 if self.tts_config.get("num_speakers", 1) > 1 else None
         todo = buckets or [b for b in TEXT_BUCKETS if b <= 256]
         for b in todo:
-            self.tts("a" * max(1, b - 2) + ".")
+            self.tts("a" * max(1, b - 2) + ".", speaker_id=speaker_id)
         seconds = time.time() - t0
         print(f" > Prewarmed {len(todo)} text buckets in {seconds:.2f}s",
               flush=True)

@@ -1,9 +1,11 @@
 """Glow-TTS flow decoder: time squeeze + stacked invertible flows, both
-directions (≙ tts_tpu/models/glow/decoder.py), (B, C, T) layout."""
+directions (≙ tts_tpu/models/glow/decoder.py), (B, C, T) layout. A speaker
+vector g (B, c_in, 1) conditions every coupling block, broadcast over the
+squeezed time axis."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,7 +43,7 @@ class FlowDecoder(nn.Module):
                  kernel_size: int = 5, dilation_rate: int = 1,
                  num_flow_blocks: int = 12, num_coupling_layers: int = 4,
                  dropout_rate: float = 0.05, num_splits: int = 4,
-                 num_sqz: int = 2):
+                 num_sqz: int = 2, c_in_channels: int = 0):
         super().__init__()
         self.num_sqz = num_sqz
         ch = in_channels * num_sqz
@@ -51,24 +53,28 @@ class FlowDecoder(nn.Module):
             self.flows.append(InvConvNear(ch, num_splits))
             self.flows.append(CouplingBlock(
                 ch, hidden_channels, kernel_size, dilation_rate,
-                num_coupling_layers, dropout_rate))
+                num_coupling_layers, dropout_rate, c_in_channels))
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Mel (B, C, T) -> (latent (B, C, T'), logdet (B,) summed over the
         flows in float32, mask (B, 1, T'))."""
         x, sq_mask = squeeze(x, x_mask, self.num_sqz)
         logdet_total = torch.zeros(x.shape[0], device=x.device)
         for flow in self.flows:
-            x, logdet = flow(x, sq_mask)
+            x, logdet = (flow(x, sq_mask, g) if isinstance(flow, CouplingBlock)
+                         else flow(x, sq_mask))
             logdet_total = logdet_total + logdet
         z, z_mask = unsqueeze(x, sq_mask, self.num_sqz)
         return z, logdet_total, z_mask
 
-    def reverse(self, z: torch.Tensor, z_mask: torch.Tensor
+    def reverse(self, z: torch.Tensor, z_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Latent (B, C, T) -> (mel (B, C, T'), mask (B, 1, T'))."""
         x, sq_mask = squeeze(z, z_mask, self.num_sqz)
         for flow in reversed(self.flows):
-            x = flow.reverse(x, sq_mask)
+            x = (flow.reverse(x, sq_mask, g) if isinstance(flow, CouplingBlock)
+                 else flow.reverse(x, sq_mask))
         return unsqueeze(x, sq_mask, self.num_sqz)

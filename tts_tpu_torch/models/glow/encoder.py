@@ -1,7 +1,9 @@
 """Glow-TTS text encoder: embeddings -> prenet -> rel-pos transformer ->
 mean projection + duration predictor (≙ tts_tpu/models/glow/encoder.py,
-transformer type with prenet, mean_only, single speaker — the configuration
-tts_tpu's registry builds), in PyTorch's (B, C, T) layout."""
+transformer type with prenet, mean_only — the configuration tts_tpu's
+registry builds), in PyTorch's (B, C, T) layout. With ``c_in_channels`` >
+0 the duration predictor reads the speaker vector too, concatenated after
+the encoder's channels."""
 
 from __future__ import annotations
 
@@ -51,9 +53,10 @@ class GlowTTSEncoder(nn.Module):
                  filter_channels_dp: int = 256, num_heads: int = 2,
                  num_layers: int = 6, kernel_size: int = 3,
                  rel_attn_window_size: Optional[int] = 4,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, c_in_channels: int = 0):
         super().__init__()
         self.hidden_channels = hidden_channels
+        self.c_in_channels = c_in_channels
         self.emb = nn.Embedding(num_chars, hidden_channels)
         nn.init.normal_(self.emb.weight, 0.0, hidden_channels ** -0.5)
         self.pre = ConvLayerNorm(hidden_channels, hidden_channels,
@@ -64,22 +67,28 @@ class GlowTTSEncoder(nn.Module):
             kernel_size, rel_attn_window_size, dropout_rate)
         self.proj_m = nn.Conv1d(hidden_channels, out_channels, 1)
         self.duration_predictor = DurationPredictor(
-            hidden_channels, filter_channels_dp)
+            hidden_channels + c_in_channels, filter_channels_dp)
 
-    def forward(self, x_ids: torch.Tensor, x_lengths: torch.Tensor
+    def forward(self, x_ids: torch.Tensor, x_lengths: torch.Tensor,
+                g: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
         """x_ids (B, T) int -> (means, log_scales, log_durations, x_mask),
         the first three (B, C, T) and the mask (B, 1, T); mean_only, so the
         log-scales are zero. The duration predictor sees the encoder output
-        detached, so its loss trains only its own weights."""
+        and the speaker vector ``g`` (B, c_in, 1) detached, so its loss
+        trains only its own weights."""
         x = self.emb(x_ids) * math.sqrt(self.hidden_channels)
         x = x.transpose(1, 2)                                   # (B, C, T)
         x_mask = sequence_mask(x_lengths, x_ids.shape[1]).to(x.dtype)[:, None]
         x = self.encoder(self.pre(x, x_mask), x_mask)
         o_mean = self.proj_m(x) * x_mask
         o_log_scale = torch.zeros_like(o_mean)
-        o_dur_log = self.duration_predictor(x.detach(), x_mask)
+        x_dp = x.detach()
+        if g is not None:
+            x_dp = torch.cat([x_dp, g.detach().expand(-1, -1, x.shape[2])],
+                             dim=1)
+        o_dur_log = self.duration_predictor(x_dp, x_mask)
         return o_mean, o_log_scale, o_dur_log, x_mask
 
     @torch.no_grad()

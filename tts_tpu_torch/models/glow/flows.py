@@ -2,12 +2,16 @@
 (≙ tts_tpu/models/glow/flows.py), in PyTorch's (B, C, T) layout.
 
 Each flow has ``forward(x, x_mask) -> (z, logdet)`` (training; logdet is
-(B,), float32) and ``reverse(x, x_mask) -> x`` (inference). Parameter names
+(B,), float32) and ``reverse(x, x_mask) -> x`` (inference); the coupling
+block takes the speaker vector ``g`` (B, c_in, 1) too. Parameter names
 follow Mozilla TTS (``logs``/``bias``, ``weight``, ``start``/``wn``/``end``,
-``in_layers``/``res_skip_layers`` with ``weight_v``/``weight_g``).
+``in_layers``/``res_skip_layers``/``cond_layer`` with
+``weight_v``/``weight_g``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,9 +21,12 @@ from tts_tpu_torch.models.glow.transformer import LayerNorm
 from tts_tpu_torch.models.weight_norm import weight_norm
 
 
-def fused_gate(x: torch.Tensor) -> torch.Tensor:
-    """tanh of the first channel half times sigmoid of the second (single
-    speaker: no conditioning term is added first)."""
+def fused_gate(x: torch.Tensor, g: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """tanh of the first channel half times sigmoid of the second, of x
+    plus the speaker conditioning ``g`` where there is one."""
+    if g is not None:
+        x = x + g
     t, s = torch.chunk(x, 2, dim=1)
     return torch.tanh(t) * torch.sigmoid(s)
 
@@ -167,17 +174,23 @@ class InvConvNear(nn.Module):
 
 
 class WN(nn.Module):
-    """Dilated-conv WaveNet core with weight norm (≙ WN), single speaker."""
+    """Dilated-conv WaveNet core with weight norm (≙ WN). With
+    ``c_in_channels`` > 0, one weight-normed 1x1 conv (``cond_layer``) maps
+    the speaker vector to 2 x hidden channels per layer, split by layer and
+    added before each gate."""
 
     def __init__(self, hidden_channels: int, kernel_size: int = 5,
                  dilation_rate: int = 1, num_layers: int = 4,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, c_in_channels: int = 0):
         super().__init__()
         self.dropout = Dropout(dropout_rate)
         self.hidden_channels = hidden_channels
         self.num_layers = num_layers
         self.in_layers = nn.ModuleList()
         self.res_skip_layers = nn.ModuleList()
+        if c_in_channels > 0:
+            self.cond_layer = weight_norm(nn.Conv1d(
+                c_in_channels, 2 * hidden_channels * num_layers, 1))
         for i in range(num_layers):
             dilation = dilation_rate ** i
             pad = (kernel_size - 1) // 2 * dilation
@@ -189,12 +202,17 @@ class WN(nn.Module):
             self.res_skip_layers.append(weight_norm(nn.Conv1d(
                 hidden_channels, res_skip, 1)))
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
         H = self.hidden_channels
         output = torch.zeros_like(x)
+        g_all = (self.cond_layer(g) if g is not None
+                 and hasattr(self, "cond_layer") else None)
         for i, (conv_in, conv_rs) in enumerate(zip(self.in_layers,
                                                    self.res_skip_layers)):
-            res_skip = conv_rs(fused_gate(self.dropout(conv_in(x))))
+            g_l = None if g_all is None else g_all[:, 2 * H * i:
+                                                   2 * H * (i + 1)]
+            res_skip = conv_rs(fused_gate(self.dropout(conv_in(x)), g_l))
             if i < self.num_layers - 1:
                 x = (x + res_skip[:, :H]) * x_mask
                 output = output + res_skip[:, H:]
@@ -209,31 +227,35 @@ class CouplingBlock(nn.Module):
 
     def __init__(self, in_channels: int, hidden_channels: int,
                  kernel_size: int = 5, dilation_rate: int = 1,
-                 num_layers: int = 4, dropout_rate: float = 0.0):
+                 num_layers: int = 4, dropout_rate: float = 0.0,
+                 c_in_channels: int = 0):
         super().__init__()
         self.half = in_channels // 2
         self.start = weight_norm(nn.Conv1d(self.half, hidden_channels, 1))
         self.wn = WN(hidden_channels, kernel_size, dilation_rate, num_layers,
-                     dropout_rate)
+                     dropout_rate, c_in_channels)
         # zero-initialized end conv: an identity flow at start
         self.end = nn.Conv1d(hidden_channels, in_channels, 1)
         nn.init.zeros_(self.end.weight)
         nn.init.zeros_(self.end.bias)
 
-    def _affine(self, x_0: torch.Tensor, x_mask: torch.Tensor):
+    def _affine(self, x_0: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor]):
         h = self.start(x_0) * x_mask
-        out = self.end(self.wn(h, x_mask))
+        out = self.end(self.wn(h, x_mask, g))
         return out[:, :self.half], out[:, self.half:]       # m, logs
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None):
         x_0, x_1 = x[:, :self.half], x[:, self.half:]
-        m, logs = self._affine(x_0, x_mask)
+        m, logs = self._affine(x_0, x_mask, g)
         z_1 = (m + torch.exp(logs) * x_1) * x_mask
         logdet = (logs.float() * x_mask).sum(dim=(1, 2))
         return torch.cat([x_0, z_1], dim=1), logdet
 
-    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
         x_0, x_1 = x[:, :self.half], x[:, self.half:]
-        m, logs = self._affine(x_0, x_mask)
+        m, logs = self._affine(x_0, x_mask, g)
         z_1 = (x_1 - m) * torch.exp(-logs) * x_mask
         return torch.cat([x_0, z_1], dim=1)

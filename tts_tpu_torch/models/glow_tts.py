@@ -1,5 +1,5 @@
 """Glow-TTS: transformer encoder + duration predictor + flow decoder + MAS
-(≙ tts_tpu/models/glow_tts.py; single speaker).
+(≙ tts_tpu/models/glow_tts.py).
 
 Training (``forward``) runs the mel through the flows to the latent z,
 builds the (text x frame) Gaussian log-likelihood map and finds the best
@@ -10,6 +10,13 @@ plus the duration loss; ``apply_ddi`` the data-dependent ActNorm init.
 Inference runs the encoder as one fused call (B3: the hand-written kernels on
 the card) where the configuration allows, expands the statistics by
 predicted durations (``generate_path``) and inverts the flows.
+
+With ``num_speakers`` > 1 a speaker embedding ``emb_g`` (64 wide, as
+tts_tpu's registry builds it) conditions the duration predictor and every
+coupling block; external speaker embeddings of that width
+(``speaker_embeddings``) take precedence over ids, as in tts_tpu. B3
+computes the encoder without speakers, so such a model runs its encoder
+module.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from tts_tpu_torch.ops.masking import sequence_mask
 
 
 class GlowTTS(nn.Module):
-    def __init__(self, num_chars: int = 200, out_channels: int = 80,
+    def __init__(self, num_chars: int = 200, num_speakers: int = 1,
+                 out_channels: int = 80,
                  hidden_channels_enc: int = 192,
                  hidden_channels_dec: int = 192, filter_channels: int = 768,
                  filter_channels_dp: int = 256, num_heads: int = 2,
@@ -44,6 +52,8 @@ class GlowTTS(nn.Module):
                  dropout_rate: float = 0.1, dropout_rate_dec: float = 0.05):
         super().__init__()
         self.num_sqz = num_sqz
+        self.num_speakers = num_speakers
+        c_in_channels = 64 if num_speakers > 1 else 0
         self.encoder = GlowTTSEncoder(
             num_chars=num_chars, out_channels=out_channels,
             hidden_channels=hidden_channels_enc,
@@ -51,14 +61,17 @@ class GlowTTS(nn.Module):
             filter_channels_dp=filter_channels_dp, num_heads=num_heads,
             num_layers=num_layers_enc, kernel_size=kernel_size,
             rel_attn_window_size=rel_attn_window_size,
-            dropout_rate=dropout_rate)
+            dropout_rate=dropout_rate, c_in_channels=c_in_channels)
         self.decoder = FlowDecoder(
             in_channels=out_channels, hidden_channels=hidden_channels_dec,
             kernel_size=kernel_size_dec, dilation_rate=dilation_rate,
             num_flow_blocks=num_flow_blocks_dec,
             num_coupling_layers=num_block_layers,
             dropout_rate=dropout_rate_dec, num_splits=num_splits,
-            num_sqz=num_sqz)
+            num_sqz=num_sqz, c_in_channels=c_in_channels)
+        if num_speakers > 1:
+            self.emb_g = nn.Embedding(num_speakers, c_in_channels)
+            nn.init.uniform_(self.emb_g.weight, -0.1, 0.1)
 
     def set_generator(self, generator: Optional[torch.Generator]) -> None:
         """Draw every dropout mask from ``generator`` (on the model's
@@ -72,8 +85,21 @@ class GlowTTS(nn.Module):
             if hasattr(flow, "store_inverse"):
                 flow.store_inverse()
 
+    def speaker_vector(self, speaker_ids: Optional[torch.Tensor] = None,
+                       speaker_embeddings: Optional[torch.Tensor] = None
+                       ) -> Optional[torch.Tensor]:
+        """g (B, c_in, 1): the external embeddings where given, else the
+        ids' rows of ``emb_g`` on a multi-speaker model, else None."""
+        if speaker_embeddings is not None:
+            return speaker_embeddings[:, :, None]
+        if self.num_speakers > 1 and speaker_ids is not None:
+            return self.emb_g(speaker_ids.long())[:, :, None]
+        return None
+
     def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
-                mel: torch.Tensor, mel_lengths: torch.Tensor
+                mel: torch.Tensor, mel_lengths: torch.Tensor,
+                speaker_ids: Optional[torch.Tensor] = None,
+                speaker_embeddings: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward (≙ ``GlowTTS.__call__``). text (B, T_x) ids;
         mel (B, C, T_y) in NCW. Returns tts_tpu's keys; ``alignments`` is
@@ -81,13 +107,14 @@ class GlowTTS(nn.Module):
         y_log_scale (B, C, T_y'); o_dur_log, o_attn_dur, x_mask (B, 1, T_x);
         y_mask (B, 1, T_y'); logdet (B,); y_lengths (B,), where T_y' is T_y
         cut to a multiple of num_sqz."""
+        g = self.speaker_vector(speaker_ids, speaker_embeddings)
         o_mean, o_log_scale, o_dur_log, x_mask = self.encoder(
-            text, text_lengths)
+            text, text_lengths, g)
         y_max = mel.shape[2] // self.num_sqz * self.num_sqz
         mel = mel[:, :, :y_max]
         mel_lengths_sqz = (mel_lengths // self.num_sqz) * self.num_sqz
         y_mask = sequence_mask(mel_lengths_sqz, y_max).to(mel.dtype)[:, None]
-        z, logdet, y_mask = self.decoder(mel, y_mask)
+        z, logdet, y_mask = self.decoder(mel, y_mask, g)
 
         # the alignment, without gradient (≙ tts_tpu's stop_gradients)
         with torch.no_grad():
@@ -118,26 +145,29 @@ class GlowTTS(nn.Module):
             "y_lengths": mel_lengths_sqz,
         }
 
-    def encode(self, text: torch.Tensor, text_lengths: torch.Tensor):
+    def encode(self, text: torch.Tensor, text_lengths: torch.Tensor,
+               g: Optional[torch.Tensor] = None):
         """The encoder as inference runs it. In eval mode without autograd,
-        on a configuration that ``supports_fused_encoder`` accepts and a
-        text no longer than ``fused_encoder_max_length`` (what B3's
-        attention block holds on the card), it is one ``fused_glow_encoder``
-        call (the B3 kernels for CUDA tensors, their plain version for CPU
-        tensors); otherwise (training mode, grad mode, a longer text) the
-        module with its dropout."""
+        on a configuration that ``supports_fused_encoder`` accepts (no
+        speakers) and a text no longer than ``fused_encoder_max_length``
+        (what B3's attention block holds on the card), it is one
+        ``fused_glow_encoder`` call (the B3 kernels for CUDA tensors, their
+        plain version for CPU tensors); otherwise (training mode, grad mode,
+        a speaker vector, a longer text) the module with its dropout."""
         enc = self.encoder
         if (not self.training and not torch.is_grad_enabled()
-                and supports_fused_encoder(enc)):
+                and g is None and supports_fused_encoder(enc)):
             limit = fused_encoder_max_length(enc, text.device)
             if limit is None or text.shape[1] <= limit:
                 return fused_glow_encoder(enc, enc.packed_weights(), text,
                                           text_lengths)
-        return enc(text, text_lengths)
+        return enc(text, text_lengths, g)
 
     @torch.no_grad()
     def inference(self, text: torch.Tensor,
                   text_lengths: Optional[torch.Tensor] = None,
+                  speaker_ids: Optional[torch.Tensor] = None,
+                  speaker_embeddings: Optional[torch.Tensor] = None,
                   noise_scale: float = 0.33, length_scale: float = 1.0,
                   y_max_length: int = 1024,
                   generator: Optional[torch.Generator] = None
@@ -149,8 +179,9 @@ class GlowTTS(nn.Module):
         if text_lengths is None:
             text_lengths = torch.full((text.shape[0],), text.shape[1],
                                       dtype=torch.int32, device=text.device)
+        g = self.speaker_vector(speaker_ids, speaker_embeddings)
         o_mean, o_log_scale, o_dur_log, x_mask = self.encode(text,
-                                                              text_lengths)
+                                                              text_lengths, g)
 
         # expm1, not exp: durations were regressed against log1p(sum attn)
         w = torch.expm1(o_dur_log[:, 0]) * x_mask[:, 0] * length_scale
@@ -174,7 +205,7 @@ class GlowTTS(nn.Module):
         else:
             # noise_scale == 0: deterministic, no random numbers drawn
             z = y_mean * y_mask
-        mel, _ = self.decoder.reverse(z, y_mask)
+        mel, _ = self.decoder.reverse(z, y_mask, g)
         return {
             "model_outputs": mel.transpose(1, 2),
             "mel_lengths": y_lengths,
@@ -215,4 +246,5 @@ def apply_ddi(model: GlowTTS, batch: Dict[str, torch.Tensor]) -> None:
         if isinstance(m, ActNorm):
             m.initialized = False
     model(batch["text"], batch["text_lengths"], batch["mel"],
-          batch["mel_lengths"])
+          batch["mel_lengths"], batch.get("speaker_ids"),
+          batch.get("speaker_embeddings"))

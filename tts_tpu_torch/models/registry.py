@@ -6,13 +6,14 @@ from __future__ import annotations
 from typing import Any, Dict
 
 
-def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
+def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any],
+                speaker_embedding_dim: int = 0):
+    """``speaker_embedding_dim`` > 0: a multi-speaker Tacotron2 reads
+    external d-vectors of that width instead of learning an embedding per
+    speaker id (tts_tpu's trainer passes the width of its speakers.json)."""
     name = c["model"].lower()
     audio = c.get("audio", {})
     if name == "glow_tts":
-        if num_speakers > 1:
-            raise NotImplementedError(
-                "multi-speaker Glow-TTS is not ported yet")
         if c.get("encoder_type", "transformer") != "transformer":
             raise NotImplementedError(
                 "only the transformer Glow-TTS encoder is ported")
@@ -22,6 +23,7 @@ def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
         # which its trainer trains with (active only in train() mode)
         return GlowTTS(
             num_chars=num_chars,
+            num_speakers=num_speakers,
             out_channels=audio.get("num_mels", 80),
             hidden_channels_enc=c.get("hidden_channels_encoder", 192),
             hidden_channels_dec=c.get("hidden_channels_decoder", 192),
@@ -30,19 +32,21 @@ def setup_model(num_chars: int, num_speakers: int, c: Dict[str, Any]):
             dropout_rate_dec=0.05,
         )
     if name == "tacotron2":
-        if num_speakers > 1:
-            raise NotImplementedError(
-                "multi-speaker Tacotron2 is not ported yet")
-        if c.get("use_gst", False):
-            raise NotImplementedError("Tacotron2 with GST is not ported yet")
         from tts_tpu_torch.models.tacotron2 import Tacotron2
         # r_init covers the largest r of the gradual-training schedule: the
         # decoder's projection and stopnet are sized by it, so a checkpoint
         # trained with gradual r loads into a model built from the config
         gradual = c.get("gradual_training") or []
         r = c.get("r", 7)
+        gst = c.get("gst", {}) or {}
         return Tacotron2(
             num_chars=num_chars,
+            num_speakers=num_speakers,
+            external_speaker_dim=speaker_embedding_dim,
+            use_gst=c.get("use_gst", False),
+            gst_num_style_tokens=gst.get("gst_style_tokens", 10),
+            gst_embedding_dim=gst.get("gst_embedding_dim", 512),
+            gst_num_heads=gst.get("gst_num_heads", 4),
             n_mels=audio.get("num_mels", 80),
             r=r,
             r_init=max([r] + [e[1] for e in gradual]),

@@ -22,8 +22,16 @@ serving fast path for the configuration it supports is
 ``infer/fast_decode.py::taco2_fused_inference`` (the B7 and B8 kernels).
 
 Inference never runs the coarse or the backward decoder, as in tts_tpu.
-Not ported yet: GST, multi-speaker conditioning and streaming
-(``inference_truncated``).
+
+Speakers and style join after the encoder, as in tts_tpu: with
+``num_speakers`` > 1 a speaker vector (a learned ``speaker_embedding``, 64
+wide, or with ``external_speaker_dim`` > 0 the caller's d-vectors) and
+with ``use_gst`` the GST style vector of a style mel (the target mel in
+training) are broadcast over the text and concatenated to the encoder's
+outputs, so the decoder reads ``encoder_dim`` + those widths.
+Such models are refused by ``infer/fast_decode.py::supports_fused_decode``
+(B8 takes no conditioning); their encoder still runs B7 at eval.
+Not ported yet: streaming (``inference_truncated``).
 """
 
 from __future__ import annotations
@@ -34,11 +42,13 @@ import torch
 from torch import nn
 
 from tts_tpu_torch.models.dropout import Dropout, set_generator
+from tts_tpu_torch.models.gst import GST
 from tts_tpu_torch.models.layers import Encoder, Linear, Postnet, Prenet
 from tts_tpu_torch.ops.attention import init_attn
 from tts_tpu_torch.ops.masking import sequence_mask
 
 Carry = Dict[str, object]
+SPEAKER_EMBEDDING_DIM = 64      # tts_tpu's learned speaker table width
 
 
 class Decoder(nn.Module):
@@ -130,11 +140,15 @@ class Decoder(nn.Module):
 
 
 class Tacotron2(nn.Module):
-    """(≙ Tacotron2) for one speaker without GST."""
+    """(≙ Tacotron2)."""
 
-    def __init__(self, num_chars: int = 200, n_mels: int = 80, r: int = 7,
+    def __init__(self, num_chars: int = 200, num_speakers: int = 1,
+                 n_mels: int = 80, r: int = 7,
                  r_init: int = 0, encoder_dim: int = 512,
-                 embedding_dim: int = 512, prenet_type: str = "original",
+                 embedding_dim: int = 512, external_speaker_dim: int = 0,
+                 use_gst: bool = False,
+                 gst_num_style_tokens: int = 10, gst_embedding_dim: int = 512,
+                 gst_num_heads: int = 4, prenet_type: str = "original",
                  prenet_dropout: bool = True, attn_type: str = "original",
                  attn_dim: int = 128, location_attn: bool = True,
                  use_forward_attn: bool = False,
@@ -151,11 +165,25 @@ class Tacotron2(nn.Module):
                              f"embedding_dim {embedding_dim} != encoder_dim "
                              f"{encoder_dim}")
         self.n_mels = n_mels
+        self.num_speakers = num_speakers
+        self.external_speaker_dim = external_speaker_dim
+        self.use_gst = use_gst
         self.max_decoder_steps = max_decoder_steps
         self.stop_threshold = stop_threshold
         self.embedding = nn.Embedding(num_chars, embedding_dim)
         nn.init.normal_(self.embedding.weight, 0.0, 0.3)
         self.encoder = Encoder(encoder_dim)
+        dec_in = encoder_dim
+        if num_speakers > 1:
+            dec_in += external_speaker_dim or SPEAKER_EMBEDDING_DIM
+            if not external_speaker_dim:
+                self.speaker_embedding = nn.Embedding(num_speakers,
+                                                      SPEAKER_EMBEDDING_DIM)
+                nn.init.normal_(self.speaker_embedding.weight, 0.0, 0.3)
+        if use_gst:
+            dec_in += gst_embedding_dim
+            self.gst_layer = GST(n_mels, gst_num_heads, gst_num_style_tokens,
+                                 gst_embedding_dim)
         dec_kwargs = dict(
             n_mels=n_mels, prenet_type=prenet_type,
             prenet_dropout=prenet_dropout, attn_type=attn_type,
@@ -164,11 +192,11 @@ class Tacotron2(nn.Module):
             use_transition_agent=use_transition_agent,
             forward_attn_mask=forward_attn_mask, attn_norm=attn_norm,
             windowing=windowing, separate_stopnet=separate_stopnet)
-        self.decoder = Decoder(encoder_dim, r=r, r_init=r_init, **dec_kwargs)
+        self.decoder = Decoder(dec_in, r=r, r_init=r_init, **dec_kwargs)
         if double_decoder_consistency:
-            self.coarse_decoder = Decoder(encoder_dim, r=ddc_r, **dec_kwargs)
+            self.coarse_decoder = Decoder(dec_in, r=ddc_r, **dec_kwargs)
         if bidirectional_decoder:
-            self.backward_decoder = Decoder(encoder_dim, r=r, r_init=r_init,
+            self.backward_decoder = Decoder(dec_in, r=r, r_init=r_init,
                                             **dec_kwargs)
         self.postnet = Postnet(n_mels)
 
@@ -193,13 +221,30 @@ class Tacotron2(nn.Module):
         set_generator(self, generator)
 
     def encode(self, text: torch.Tensor, text_lengths: torch.Tensor,
-               mask_pads: bool = False, packed_lstm=None
+               mask_pads: bool = False, packed_lstm=None,
+               speaker_ids: Optional[torch.Tensor] = None,
+               speaker_embeddings: Optional[torch.Tensor] = None,
+               style_mel: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """text (B, T) ids -> (encoder outputs (B, T, C), mask (B, T)).
-        ``packed_lstm``: the encoder's ``packed_lstm()``, when kept."""
+        """text (B, T) ids -> (encoder outputs (B, T, C), mask (B, T)),
+        with the speaker vector (ids, or the external d-vectors (B, D)) and
+        the style vector of ``style_mel`` (B, T_mel, n_mels) concatenated
+        on a model that has them. ``packed_lstm``: the encoder's
+        ``packed_lstm()``, when kept."""
         x = self.embedding(text).transpose(1, 2)
         enc = self.encoder(x, text_lengths, mask_pads=mask_pads,
                            packed=packed_lstm)
+        parts = [enc]
+        if self.num_speakers > 1:
+            spk = (speaker_embeddings if self.external_speaker_dim
+                   else self.speaker_embedding(speaker_ids.long()))
+            parts.append(spk)
+        if self.use_gst:
+            parts.append(self.gst_layer(style_mel))
+        if len(parts) > 1:
+            B, T, _ = enc.shape
+            enc = torch.cat([enc] + [p[:, None].expand(B, T, -1)
+                                     for p in parts[1:]], dim=-1)
         return enc, sequence_mask(text_lengths, enc.shape[1])
 
     def finish(self, frames: torch.Tensor, stop_logits: torch.Tensor,
@@ -222,6 +267,9 @@ class Tacotron2(nn.Module):
     @torch.no_grad()
     def inference(self, text: torch.Tensor,
                   text_lengths: Optional[torch.Tensor] = None,
+                  speaker_ids: Optional[torch.Tensor] = None,
+                  speaker_embeddings: Optional[torch.Tensor] = None,
+                  style_mel: Optional[torch.Tensor] = None,
                   max_decoder_steps: Optional[int] = None,
                   use_windowing: bool = True) -> Dict[str, torch.Tensor]:
         """Greedy decode over ``max_decoder_steps`` (the model's budget by
@@ -231,7 +279,10 @@ class Tacotron2(nn.Module):
             text_lengths = torch.full((B,), text.shape[1], dtype=torch.int32,
                                       device=text.device)
         steps = max_decoder_steps or self.max_decoder_steps
-        enc, mask = self.encode(text, text_lengths, mask_pads=True)
+        enc, mask = self.encode(text, text_lengths, mask_pads=True,
+                                speaker_ids=speaker_ids,
+                                speaker_embeddings=speaker_embeddings,
+                                style_mel=style_mel)
         carry = self.decoder.init_carry(enc, mask)
         memory = enc.new_zeros(B, self.n_mels)
         frames, stops, aligns = [], [], []
@@ -269,7 +320,9 @@ class Tacotron2(nn.Module):
                 torch.stack(stops, dim=1), torch.stack(aligns, dim=1))
 
     def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
-                mel: torch.Tensor, mel_lengths: Optional[torch.Tensor] = None
+                mel: torch.Tensor, mel_lengths: Optional[torch.Tensor] = None,
+                speaker_ids: Optional[torch.Tensor] = None,
+                speaker_embeddings: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """The teacher-forced pass (≙ ``Tacotron2.__call__``): text (B, T)
         ids, mel (B, T_mel, n_mels) with T_mel a multiple of r ->
@@ -278,8 +331,11 @@ class Tacotron2(nn.Module):
         with double decoder consistency ``coarse_decoder_outputs`` and
         ``coarse_alignments``, with the backward decoder
         ``backward_decoder_outputs`` and ``backward_alignments``.
-        ``mel_lengths`` is not read (tts_tpu's signature)."""
-        enc, mask = self.encode(text, text_lengths)
+        ``mel_lengths`` is not read (tts_tpu's signature). With GST the
+        style mel is ``mel`` itself."""
+        enc, mask = self.encode(text, text_lengths, speaker_ids=speaker_ids,
+                                speaker_embeddings=speaker_embeddings,
+                                style_mel=mel if self.use_gst else None)
         frames, stops, aligns = self.teacher_forced(self.decoder, enc, mask,
                                                     mel)
         post = frames + self.postnet(frames.transpose(1, 2)).transpose(1, 2)

@@ -61,12 +61,13 @@ class PackedGlowEncoder(NamedTuple):
 
 def supports_fused_encoder(enc) -> bool:
     """The configuration B3 computes: the port's ``GlowTTSEncoder``
-    (transformer, prenet, mean_only, one speaker) with window 4 in every
-    layer, and LayerNorm widths (hidden, duration filter) of at most 256,
-    which one block of the kernel holds. Depends on the configuration
-    only."""
+    (transformer, prenet, mean_only) of one speaker (no speaker channels
+    into the duration predictor: B3 takes no conditioning, as tts_tpu's
+    Pallas encoder) with window 4 in every layer, and LayerNorm widths
+    (hidden, duration filter) of at most 256, which one block of the kernel
+    holds. Depends on the configuration only."""
     from tts_tpu_torch.models.glow.encoder import GlowTTSEncoder
-    if not isinstance(enc, GlowTTSEncoder):
+    if not isinstance(enc, GlowTTSEncoder) or enc.c_in_channels:
         return False
     tr = enc.encoder
     return (all(a.window == REL_W for a in tr.attn_layers)

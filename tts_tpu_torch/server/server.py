@@ -1,5 +1,6 @@
-"""HTTP TTS server: demo page, GET /api/tts?text=... -> WAV bytes, /health
-(≙ tts_tpu/server/server.py), over the port's ``Synthesizer``.
+"""HTTP TTS server: demo page, GET /api/tts?text=...[&speaker_id=N] -> WAV
+bytes, /health (≙ tts_tpu/server/server.py), over the port's
+``Synthesizer``.
 
 Run on the card:
     python -m tts_tpu_torch.server.server --tts_checkpoint glow.pt \\
@@ -8,7 +9,8 @@ Run on the card:
          --vocoder_config configs/multiband_melgan.json]
 
 Without a vocoder the server answers with Griffin-Lim audio, as tts_tpu's
-does. Checkpoints may be the port's or tts_tpu's (see ``Synthesizer``).
+does. A ``speaker_id`` that is not an integer, or not one of the model's
+speakers, is answered with 400 before anything reaches the card. Checkpoints may be the port's or tts_tpu's (see ``Synthesizer``).
 ``--prewarm`` serves one sentence per text bucket before it listens
 (``Synthesizer.prewarm``).
 """
@@ -21,6 +23,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from tts_tpu_torch.audio.processor import wav_to_bytes
+from tts_tpu_torch.infer.synthesis import check_speaker_id
 
 _DEMO_PAGE = """<!DOCTYPE html>
 <html>
@@ -65,12 +68,20 @@ def make_handler(synthesizer):
             if url.path == "/":
                 self._send(_DEMO_PAGE.encode(), "text/html")
             elif url.path == "/api/tts":
-                text = parse_qs(url.query).get("text", [""])[0]
+                qs = parse_qs(url.query)
+                text = qs.get("text", [""])[0]
                 if not text:
                     self.send_error(400, "missing text parameter")
                     return
+                speaker = qs.get("speaker_id", [None])[0]
                 try:
-                    wav = synthesizer.tts(text)
+                    speaker_id = int(speaker) if speaker else None
+                    check_speaker_id(synthesizer.model, speaker_id)
+                except ValueError as e:
+                    self.send_error(400, f"bad speaker_id: {e}")
+                    return
+                try:
+                    wav = synthesizer.tts(text, speaker_id=speaker_id)
                 except Exception as e:  # surface synthesis errors as 500s
                     self.send_error(500, str(e))
                     return

@@ -38,8 +38,11 @@ def save_checkpoint(output_dir: str, *, model: torch.nn.Module,
                     model_loss: Optional[float] = None,
                     config: Optional[Dict] = None,
                     prefix: str = "checkpoint",
-                    r: Optional[int] = None) -> str:
-    """Writes ``<output_dir>/<prefix>_<step>.pt``; returns its path."""
+                    r: Optional[int] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> str:
+    """Writes ``<output_dir>/<prefix>_<step>.pt``; returns its path.
+    ``extra``: more entries of plain types or tensors (the speaker
+    encoder's ``"criterion"``)."""
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f"{prefix}_{step}.pt")
     payload = {
@@ -53,6 +56,7 @@ def save_checkpoint(output_dir: str, *, model: torch.nn.Module,
     }
     if r is not None:
         payload["r"] = r
+    payload.update(_to_cpu(extra or {}))
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

@@ -6,7 +6,10 @@ duration loss, backward and the optimizer step (``train_step``). Weights
 start from ``config["seed"]`` (54321 by default); dropout masks and the DDI
 pass draw from the trainer's ``torch.Generator`` on its device; each
 epoch's shuffle is seeded with the epoch number, as in tts_tpu.
-Multi-speaker training and the data-parallel step are not ported yet.
+With ``use_speaker_embedding`` the model learns one embedding per speaker
+of the training split (sorted names -> ids), as tts_tpu's trainer does;
+the batches carry ``speaker_ids``. The data-parallel step is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from tts_tpu_torch import DeviceLike, resolve_device
 from tts_tpu_torch.audio import AudioProcessor
 from tts_tpu_torch.data import TTSDataset, load_meta_data
+from tts_tpu_torch.data.formatters import get_speakers
 from tts_tpu_torch.models.glow_tts import GlowTTS, apply_ddi, glow_tts_loss
 from tts_tpu_torch.models.registry import setup_model
 from tts_tpu_torch.text import num_symbols
@@ -33,14 +37,19 @@ from tts_tpu_torch.utils.loggers import ConsoleLogger, TensorboardLogger
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
                     ) -> Dict[str, torch.Tensor]:
     """A collated numpy batch (time-major mel) -> tensors on ``device``,
-    mel in (B, C, T)."""
-    return {
+    mel in (B, C, T); ``speaker_ids`` and ``speaker_embeddings`` where the
+    batch has them."""
+    out = {
         "text": torch.from_numpy(batch["text"]).long().to(device),
         "text_lengths": torch.from_numpy(batch["text_lengths"]).to(device),
         "mel": torch.from_numpy(batch["mel"]).to(device).transpose(1, 2)
         .contiguous(),
         "mel_lengths": torch.from_numpy(batch["mel_lengths"]).to(device),
     }
+    for key in ("speaker_ids", "speaker_embeddings"):
+        if key in batch:
+            out[key] = torch.from_numpy(batch[key]).to(device)
+    return out
 
 
 def train_step(model: GlowTTS, optimizer: RAdamW,
@@ -49,7 +58,8 @@ def train_step(model: GlowTTS, optimizer: RAdamW,
     the model's current mode. Returns the losses before the update."""
     optimizer.zero_grad()
     out = model(batch["text"], batch["text_lengths"], batch["mel"],
-                batch["mel_lengths"])
+                batch["mel_lengths"], batch.get("speaker_ids"),
+                batch.get("speaker_embeddings"))
     losses = glow_tts_loss(out, batch["text_lengths"])
     losses["loss"].backward()
     optimizer.step()
@@ -60,9 +70,6 @@ def train_step(model: GlowTTS, optimizer: RAdamW,
 class GlowTTSTrainer:
     def __init__(self, config: Dict[str, Any], output_path: str,
                  device: DeviceLike = None):
-        if config.get("use_speaker_embedding", False):
-            raise NotImplementedError("multi-speaker Glow-TTS training is "
-                                      "not ported yet")
         if config.get("use_data_parallel", False):
             raise NotImplementedError("the data-parallel Glow step is not "
                                       "ported yet")
@@ -73,12 +80,18 @@ class GlowTTSTrainer:
         self.ap = AudioProcessor(**config["audio"])
         # the eval split is held out of training, as in tts_tpu
         self.meta_train, _ = load_meta_data(config["datasets"])
+        self.num_speakers = 1
+        self.speaker_mapping = None
+        if config.get("use_speaker_embedding", False):
+            speakers = get_speakers(self.meta_train)
+            self.speaker_mapping = {s: i for i, s in enumerate(speakers)}
+            self.num_speakers = len(speakers)
 
         seed = config.get("seed", 54321)
         num_chars = num_symbols(config.get("use_phonemes", False))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = setup_model(num_chars, 1, config)
+            model = setup_model(num_chars, self.num_speakers, config)
         self.model = model.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.model.set_generator(self.generator)
@@ -106,6 +119,7 @@ class GlowTTSTrainer:
             phoneme_cache_path=c.get("phoneme_cache_path"),
             phoneme_language=c.get("phoneme_language", "en-us"),
             enable_eos_bos=c.get("enable_eos_bos_chars", False),
+            speaker_id_mapping=self.speaker_mapping,
             min_seq_len=c.get("min_seq_len", 0),
             max_seq_len=c.get("max_seq_len", float("inf")))
 

@@ -15,14 +15,24 @@ B8 run on the card, with Griffin-Lim audio logged to TensorBoard.
 ``test_run`` draws no figures (tts_tpu's spectrogram and alignment plots
 need matplotlib, which the port does not depend on).
 
+With ``use_speaker_embedding`` the model is multi-speaker as in tts_tpu:
+one learned embedding per speaker of the training split, or with
+``use_external_speaker_embedding_file`` the d-vectors of that speakers.json
+(keyed by wav path; the speakers are its names), which the batches carry.
+``use_gst`` adds the GST layer, its style mel the target mel. The test
+sentences of such a model are skipped: tts_tpu's ``test_run`` passes no
+speaker and no style, and each of its sentences fails (ROADMAP C19).
+
 ``mixed_precision`` is tts_tpu's: bfloat16 copies of the parameters run the
 forward (``torch.func.functional_call``) on a bfloat16 mel; the outputs
 return to float32 before the loss, and the float32 masters take the
 gradients. BatchNorm's running statistics stay float32. Weights start from
 ``config["seed"]`` (54321 by default); every dropout mask comes from the
 trainer's ``torch.Generator``. ``use_data_parallel`` on one device is a
-world of one: the single-device step runs. More devices, multi-speaker
-training and GST are not ported yet.
+world of one: the single-device step runs. More devices are not ported
+yet. In mixed precision the external d-vectors stay float32, as in
+tts_tpu, so the encoder's output they join is float32 and the layers
+that read it compute in float32 (``forward``).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from tts_tpu_torch import DeviceLike, resolve_device
 from tts_tpu_torch.audio import AudioProcessor
 from tts_tpu_torch.config import check_config_tts
 from tts_tpu_torch.data import TTSDataset, load_meta_data
+from tts_tpu_torch.data.formatters import get_speakers
 from tts_tpu_torch.infer.synthesis import synthesis
 from tts_tpu_torch.losses.tts_losses import tacotron_loss
 from tts_tpu_torch.models.registry import setup_model
@@ -50,6 +61,7 @@ from tts_tpu_torch.train.optim import (RAdamW, gradual_training_schedule,
                                        make_optimizer)
 from tts_tpu_torch.utils.generic import KeepAverage, StepTimer
 from tts_tpu_torch.utils.loggers import ConsoleLogger, TensorboardLogger
+from tts_tpu_torch.utils.speakers import load_speaker_mapping
 
 Batch = Dict[str, torch.Tensor]
 
@@ -57,23 +69,51 @@ Batch = Dict[str, torch.Tensor]
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
                     ) -> Batch:
     """A collated numpy batch -> tensors on ``device``; the mel stays
-    time-major (B, T, n_mels), as the model's outputs."""
+    time-major (B, T, n_mels), as the model's outputs; ``speaker_ids`` and
+    ``speaker_embeddings`` where the batch has them."""
+    keys = ("text_lengths", "mel", "mel_lengths", "stop_targets",
+            "speaker_ids", "speaker_embeddings")
     out = {key: torch.from_numpy(batch[key]).to(device)
-           for key in ("text_lengths", "mel", "mel_lengths", "stop_targets")}
+           for key in keys if key in batch}
     out["text"] = torch.from_numpy(batch["text"]).long().to(device)
     return out
+
+
+def mixed_params(model: Tacotron2, dtype: torch.dtype,
+                 float32_decoders: bool) -> Dict[str, torch.Tensor]:
+    """The parameters for a forward in ``dtype``: copies in ``dtype`` (≙
+    tts_tpu's ``_cast_floats``). With ``float32_decoders`` the decoders but
+    their prenets (which read the ``dtype`` mel) and the postnet take
+    float32 copies of the ``dtype``-rounded values: what tts_tpu's layers
+    compute when a float32 input promotes their bfloat16 parameters."""
+    params = cast_params(model, dtype, frozen=False)
+    if float32_decoders:
+        for name, p in params.items():
+            if (name.split(".")[0] in ("decoder", "coarse_decoder",
+                                       "backward_decoder", "postnet")
+                    and ".prenet." not in name):
+                params[name] = p.float()
+    return params
 
 
 def forward(model: Tacotron2, batch: Batch,
             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The teacher-forced outputs in float32; with ``dtype`` bfloat16, from
-    bfloat16 copies of the parameters on a bfloat16 mel."""
+    bfloat16 copies of the parameters on a bfloat16 mel. External
+    d-vectors stay float32 there, as in tts_tpu: the encoder's output they
+    are concatenated to becomes float32, and from it on the decoders and
+    the postnet compute in float32 (``mixed_params``)."""
     args = (batch["text"], batch["text_lengths"], batch["mel"],
             batch["mel_lengths"])
+    kwargs = {key: batch[key] for key in ("speaker_ids",
+                                          "speaker_embeddings")
+              if key in batch}
     if dtype == torch.float32:
-        return model(*args)
-    out = functional_call(model, cast_params(model, dtype, frozen=False),
-                          (*args[:2], args[2].to(dtype), args[3]))
+        return model(*args, **kwargs)
+    params = mixed_params(model, dtype,
+                          float32_decoders="speaker_embeddings" in kwargs)
+    out = functional_call(model, params,
+                          (*args[:2], args[2].to(dtype), args[3]), kwargs)
     return {key: value.float() for key, value in out.items()}
 
 
@@ -104,9 +144,6 @@ class TTSTrainer:
         if config["model"].lower() != "tacotron2":
             raise NotImplementedError(f"training {config['model']} with this "
                                       f"trainer is not ported yet")
-        if config.get("use_speaker_embedding", False):
-            raise NotImplementedError("multi-speaker Tacotron2 training is "
-                                      "not ported yet")
         self.device = resolve_device(device)
         if config.get("use_data_parallel", False):
             n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
@@ -122,12 +159,32 @@ class TTSTrainer:
         os.makedirs(output_path, exist_ok=True)
         self.ap = AudioProcessor(**config["audio"])
         self.meta_train, self.meta_eval = load_meta_data(config["datasets"])
+        self.num_speakers = 1
+        self.speaker_mapping = None
+        self.speaker_embedding_mapping = None
+        self.speaker_embedding_dim = 0
+        if config.get("use_speaker_embedding", False):
+            if config.get("use_external_speaker_embedding_file", False):
+                mapping = load_speaker_mapping(
+                    config["external_speaker_embedding_file"])
+                self.speaker_embedding_mapping = {
+                    k: v["embedding"] for k, v in mapping.items()}
+                self.num_speakers = len({v["name"]
+                                         for v in mapping.values()})
+                self.speaker_embedding_dim = len(
+                    next(iter(self.speaker_embedding_mapping.values())))
+            else:
+                speakers = get_speakers(self.meta_train)
+                self.speaker_mapping = {s: i for i, s in enumerate(speakers)}
+                self.num_speakers = len(speakers)
 
         seed = config.get("seed", 54321)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = setup_model(num_symbols(config.get("use_phonemes",
-                                                       False)), 1, config)
+            model = setup_model(
+                num_symbols(config.get("use_phonemes", False)),
+                self.num_speakers, config,
+                speaker_embedding_dim=self.speaker_embedding_dim)
         self.model = model.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.model.set_generator(self.generator)
@@ -175,7 +232,9 @@ class TTSTrainer:
                 use_phonemes=c.get("use_phonemes", False),
                 phoneme_cache_path=c.get("phoneme_cache_path"),
                 phoneme_language=c.get("phoneme_language", "en-us"),
-                enable_eos_bos=c.get("enable_eos_bos_chars", False))
+                enable_eos_bos=c.get("enable_eos_bos_chars", False),
+                speaker_id_mapping=self.speaker_mapping,
+                speaker_embedding_mapping=self.speaker_embedding_mapping)
         return self._datasets[key]
 
     def train_epoch(self) -> Dict[str, float]:
@@ -238,8 +297,13 @@ class TTSTrainer:
 
     def test_run(self) -> Dict[str, np.ndarray]:
         """The test sentences (the config's, or tts_tpu's two) synthesized
-        at the current r and turned to audio by Griffin-Lim."""
+        at the current r and turned to audio by Griffin-Lim. A model with
+        speakers or GST gets none (see the module's docstring)."""
         self.model.eval()
+        if self.model.num_speakers > 1 or self.model.use_gst:
+            print(" [!] test sentences skipped: the model needs a speaker "
+                  "or a style, and test sentences pass neither")
+            return {}
         sentences = (self.c.get("test_sentences")
                      or self.DEFAULT_TEST_SENTENCES)
         audios = {}
