@@ -191,6 +191,43 @@ Phases, in order; any failure exits non-zero with its traceback:
    CPU on the same weights agrees within 1e-4 for at least 16 steps (the
    first step apart printed).
 
+22. tacotron v1: configs/tacotron2_ljspeech.json built in code with model
+   "tacotron", attention_norm "sigmoid" and memory_size 5 (the queue on,
+   no longer than r; the overrides printed), its audio (1024-point FFT:
+   513 linear bins), gradual schedule and bf16 mixed precision, 3 epochs
+   of one step at r 7 (batch 64) on the synthetic corpus through
+   bin/train_tts with eval epochs and the test sentences, one of them made
+   to fail: training goes on and writes its checkpoint, the other two give
+   audio. Every loss finite, the post-net's target the linear spectrogram,
+   every BatchNorm's running statistics moved; step and loader ms, peak
+   memory and the longest batch's step profiled (idle share). The
+   checkpoint with Griffin-Lim over HTTP (3 requests) and the CLI at 80
+   steps, B7 and B8 never launched; the decode on the card against the
+   CPU within 1e-4 for at least 16 steps; a mel vocoder refused (C26).
+23. graves: a Tacotron2 at tacotron2_ljspeech.json's widths with Graves
+   attention (5 components): one training step (bf16, DDC) with finite
+   losses and Graves's weights moved, then one sentence three times
+   through synthesis() at 80 steps: B7 1 + text bucket launches a call,
+   B8 none;
+   card against CPU as in 22.
+24. streaming: phase 10's Tacotron2 and phase 3's Multiband-MelGAN through
+   Synthesizer.tts_stream on a sentence of four 48-character chunks, 128
+   steps a chunk: one B7 call (1 + bucket launches) per chunk, B2's
+   proj_in and tail once a chunk, B8 none; the time to the first chunk
+   and to the whole stream beside tts() of the same text; the first
+   chunk's mel on the card against the CPU within 1e-4 of its largest
+   magnitude; a Tacotron v1 model refused (C25).
+25. glow encoders: configs/glow_tts_ljspeech.json with encoder_type
+   "gatedconv", then "time-depth-separable", 2 epochs of 2 steps at batch
+   32 through bin/train_glow_tts: B4 once a step plus the DDI pass, B3
+   never, every loss finite, the separable encoder's BatchNorm statistics
+   moved and in the checkpoint; step and loader ms, peak memory, a step
+   profiled; served over HTTP with phase 3's vocoder (B3 none, B1/B2
+   launched), and the mel on the card against the CPU (noise 0) within
+   1e-4 of its largest magnitude.
+
+Each of phases 22-25 prints its seconds (``phase_s``).
+
 Phases 3 and 4 run Glow's encoder through B3 too: phase 3 asserts its
 launches (one call per sentence), phase 4 prints its share of glow_ms.
 
@@ -533,7 +570,6 @@ def serving_phase(dev, root: str):
     from tts_tpu_torch.ops.cuda import fused_melgan as M
     from tts_tpu_torch.ops.cuda import fused_resstack as R
     from tts_tpu_torch.ops.cuda import glow_encoder as GEK
-    from tts_tpu_torch.server.server import create_server
 
     paths = build_models(root)
     synth = Synthesizer(paths["tts"], paths["tts_config"], paths["voc"],
@@ -545,37 +581,19 @@ def serving_phase(dev, root: str):
              "The birch canoe slid on the smooth planks.",
              "Four hours of steady work faced us, and the source of the huge "
              "river was clear."]
-    server = create_server(synth, port=0, host="127.0.0.1")
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    build.reset_launches()
     served = []
-    try:
-        build.reset_launches()
-        for text in texts:
-            url = (f"http://127.0.0.1:{port}/api/tts?"
-                   + urllib.parse.urlencode({"text": text}))
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(url, timeout=300) as r:
-                status, body = r.status, r.read()
-            ms = (time.perf_counter() - t0) * 1e3
-            assert status == 200 and body[:4] == b"RIFF", (status, body[:16])
-            wav, sr = read_wav(body)
-            frames = 6 * len(text_to_seqvec(text, cfg))
-            frames = -(-frames // 2) * 2
-            expect = (frames * hop if frames % 32 else (frames + 4) * hop)
-            expect += 10000                     # the inter-sentence gap
-            assert len(wav) == expect, (len(wav), expect)
-            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
-            served.append(wav)
-            log({"request": text[:40], "status": status, "samples": len(wav),
-                 "mel_frames": frames, "latency_ms": ms})
-        launches = dict(build.LAUNCHES)
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    assert not thread.is_alive()
+    for text, (wav, ms) in zip(texts, served_wavs(synth, texts)):
+        frames = 6 * len(text_to_seqvec(text, cfg))
+        frames = -(-frames // 2) * 2
+        expect = (frames * hop if frames % 32 else (frames + 4) * hop)
+        expect += 10000                         # the inter-sentence gap
+        assert len(wav) == expect, (len(wav), expect)
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+        served.append(wav)
+        log({"request": text[:40], "status": 200, "samples": len(wav),
+             "mel_frames": frames, "latency_ms": ms})
+    launches = dict(build.LAUNCHES)
     log({"main_path_launches": launches, "requests": len(texts)})
     for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
         assert launches.get(name, 0) > 0, f"{name} was not launched"
@@ -1534,7 +1552,6 @@ def taco2_serving_phase(dev, root: str):
     from tts_tpu_torch.ops.cuda import fused_melgan as M
     from tts_tpu_torch.ops.cuda import fused_resstack as R
     from tts_tpu_torch.ops.cuda import taco2_decode as TDK
-    from tts_tpu_torch.server.server import create_server
 
     voc = build_models(root)
     paths, cfg = build_taco2(root)
@@ -1550,34 +1567,15 @@ def taco2_serving_phase(dev, root: str):
              "The birch canoe slid on the smooth planks.",
              "Four hours of steady work faced us, and the source of the huge "
              "river was clear."]
-    server = create_server(synth, port=0, host="127.0.0.1")
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    build.reset_launches()
     served = []
-    try:
-        build.reset_launches()
-        for text in texts:
-            url = (f"http://127.0.0.1:{port}/api/tts?"
-                   + urllib.parse.urlencode({"text": text}))
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(url, timeout=300) as r:
-                status, body = r.status, r.read()
-            ms = (time.perf_counter() - t0) * 1e3
-            assert status == 200 and body[:4] == b"RIFF", (status, body[:16])
-            wav, _ = read_wav(body)
-            assert len(wav) == expect, (len(wav), expect)
-            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
-            served.append(wav)
-            log({"taco2_request": text[:40], "status": status,
-                 "samples": len(wav), "mel_frames": frames,
-                 "latency_ms": ms})
-        launches = dict(build.LAUNCHES)
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    assert not thread.is_alive()
+    for text, (wav, ms) in zip(texts, served_wavs(synth, texts)):
+        assert len(wav) == expect, (len(wav), expect)
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+        served.append(wav)
+        log({"taco2_request": text[:40], "status": 200,
+             "samples": len(wav), "mel_frames": frames, "latency_ms": ms})
+    launches = dict(build.LAUNCHES)
     log({"taco2_main_path_launches": launches, "requests": len(texts)})
     buckets = [bucket_text_length(len(text_to_seqvec(t, cfg))) for t in texts]
     want = {BLK.KERNEL: sum(1 + b for b in buckets),
@@ -2477,7 +2475,6 @@ def vocoder_serving_phase(dev, root: str, card: str, trained: dict):
     from tts_tpu_torch.ops.cuda import fused_melgan as M
     from tts_tpu_torch.ops.cuda import fused_resstack as R
     from tts_tpu_torch.ops.cuda import glow_encoder as GEK
-    from tts_tpu_torch.server.server import create_server
     from tts_tpu_torch.train.checkpoint import latest_checkpoint
 
     paths = build_models(root)
@@ -2492,34 +2489,16 @@ def vocoder_serving_phase(dev, root: str, card: str, trained: dict):
                             run["config"], device=dev)
         assert synth._packed is None and synth._stacks is None
         hop = synth.vocoder_ap.hop_length
-        server = create_server(synth, port=0, host="127.0.0.1")
-        port = server.server_address[1]
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
+        build.reset_launches()
         requests = []
-        try:
-            build.reset_launches()
-            for text in texts:
-                url = (f"http://127.0.0.1:{port}/api/tts?"
-                       + urllib.parse.urlencode({"text": text}))
-                t0 = time.perf_counter()
-                with urllib.request.urlopen(url, timeout=300) as r:
-                    status, body = r.status, r.read()
-                ms = (time.perf_counter() - t0) * 1e3
-                assert status == 200 and body[:4] == b"RIFF", status
-                wav, _ = read_wav(body)
-                frames = -(-6 * len(text_to_seqvec(text, cfg)) // 2) * 2
-                expect = (frames * hop if frames % 32 else (frames + 4) * hop)
-                assert len(wav) == expect + 10000, (len(wav), expect)
-                assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
-                requests.append({"text": text[:40], "latency_ms": ms,
-                                 "samples": len(wav)})
-            launches = dict(build.LAUNCHES)
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=30)
-        assert not thread.is_alive()
+        for text, (wav, ms) in zip(texts, served_wavs(synth, texts)):
+            frames = -(-6 * len(text_to_seqvec(text, cfg)) // 2) * 2
+            expect = (frames * hop if frames % 32 else (frames + 4) * hop)
+            assert len(wav) == expect + 10000, (len(wav), expect)
+            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+            requests.append({"text": text[:40], "latency_ms": ms,
+                             "samples": len(wav)})
+        launches = dict(build.LAUNCHES)
         want = encoder_launches(synth.model, texts)
         assert launches.get(GEK.KERNEL, 0) == want, (launches, want)
         for kernel in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
@@ -2588,7 +2567,7 @@ def vocoder_serving_phase(dev, root: str, card: str, trained: dict):
              "fp32_gflop": flops / 1e9,
              "mflop_per_sample": flops / out.numel() / 1e6,
              "bound_ms": bound[0], "bound_by": bound[1], "card": card})
-        del synth, cpu, server
+        del synth, cpu
 
 
 # ---------------------------------------------------------------------------
@@ -2917,7 +2896,6 @@ def multispeaker_serving_phase(dev, root: str, card: str, encoded: dict,
     from tts_tpu_torch.ops.cuda import fused_resstack as R
     from tts_tpu_torch.ops.cuda import glow_encoder as GEK
     from tts_tpu_torch.ops.cuda import taco2_decode as TDK
-    from tts_tpu_torch.server.server import create_server
     from tts_tpu_torch.text import num_symbols
     from tts_tpu_torch.train.checkpoint import latest_checkpoint
     from tts_tpu_torch.utils.speakers import load_speaker_mapping
@@ -2934,53 +2912,30 @@ def multispeaker_serving_phase(dev, root: str, card: str, encoded: dict,
                         device=dev)
     assert synth._packed is not None
     text = "The birch canoe slid on the smooth planks."
-    server = create_server(synth, port=0, host="127.0.0.1")
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    speakers = (0, 1, 0, 1)
+    build.reset_launches()
+    answers = served_wavs(synth, [{"text": text, "speaker_id": s}
+                                  for s in speakers])
+    launches = dict(build.LAUNCHES)
     wavs, requests = {}, []
-    try:
-        build.reset_launches()
-        for speaker in (0, 1, 0, 1):
-            query = urllib.parse.urlencode({"text": text,
-                                            "speaker_id": speaker})
-            url = f"http://127.0.0.1:{port}/api/tts?{query}"
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(url, timeout=300) as r:
-                status, body = r.status, r.read()
-            ms = 1e3 * (time.perf_counter() - t0)
-            assert status == 200 and body[:4] == b"RIFF", status
-            wav, _ = read_wav(body)
-            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
-            if speaker in wavs:
-                np.testing.assert_array_equal(wav, wavs[speaker])
-            wavs[speaker] = wav
-            requests.append({"speaker_id": speaker, "latency_ms": ms,
-                             "samples": len(wav)})
-        launches = dict(build.LAUNCHES)
-        # ids out of range or not integers get 400 on the host, and the
-        # process serves on (a lookup out of range on the card would be a
-        # device-side assert, fatal to every later request)
-        refused = {}
-        for bad in (str(glow.num_speakers), "-1", "x"):
-            query = urllib.parse.urlencode({"text": text, "speaker_id": bad})
-            try:
-                urllib.request.urlopen(
-                    f"http://127.0.0.1:{port}/api/tts?{query}", timeout=300)
-                refused[bad] = 200
-            except urllib.error.HTTPError as e:
-                refused[bad] = e.code
-        assert all(code == 400 for code in refused.values()), refused
-        query = urllib.parse.urlencode({"text": text, "speaker_id": 1})
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/tts?{query}",
-                                    timeout=300) as r:
-            np.testing.assert_array_equal(read_wav(r.read())[0], wavs[1])
-        torch.cuda.synchronize()
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    assert not thread.is_alive()
+    for speaker, (wav, ms) in zip(speakers, answers):
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+        if speaker in wavs:
+            np.testing.assert_array_equal(wav, wavs[speaker])
+        wavs[speaker] = wav
+        requests.append({"speaker_id": speaker, "latency_ms": ms,
+                         "samples": len(wav)})
+    # ids out of range or not integers get 400 on the host, and the
+    # process serves on (a lookup out of range on the card would be a
+    # device-side assert, fatal to every later request)
+    bad_ids = (str(glow.num_speakers), "-1", "x")
+    answers = http_requests(synth, [{"text": text, "speaker_id": s}
+                                    for s in bad_ids + (1,)])
+    refused = {bad: status for bad, (status, _, _) in zip(bad_ids, answers)}
+    assert all(code == 400 for code in refused.values()), refused
+    assert answers[-1][0] == 200, answers[-1][0]
+    np.testing.assert_array_equal(answers[-1][1], wavs[1])
+    torch.cuda.synchronize()
     differ = (len(wavs[0]) != len(wavs[1])
               or float(np.abs(wavs[0] - wavs[1]).max()) > 1e-3)
     assert differ, "two speakers gave the same audio"
@@ -3083,37 +3038,530 @@ def multispeaker_serving_phase(dev, root: str, card: str, encoded: dict,
         # first step whose frames differ by more than 1e-4 of the largest
         # magnitude (the decode is autoregressive)
         emb = np.asarray(mapping[wav_a]["embedding"], np.float32)
-        runs_out = {}
-        for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
-            model = models[key]
-            seq = torch.from_numpy(text_to_seqvec(text, tc).astype(np.int64)
-                                   )[None].to(d)
-            cond = {"speaker_embeddings": torch.from_numpy(emb)[None].to(d)}
-            if tc["use_gst"]:
-                cond["style_mel"] = torch.from_numpy(
-                    compute_style_mel(wav_b, trainer.ap)).to(d)
-            model.stop_threshold = 2.0
-            runs_out[key] = model.inference(
-                seq, max_decoder_steps=MS_TACO_STEPS, **cond)
-        steps = MS_TACO_STEPS
-        frames = [r["decoder_outputs"][0].reshape(steps, -1).cpu()
-                  for r in (runs_out["card"], runs_out["cpu"])]
-        scale = float(frames[1].abs().max())
-        per_step = (frames[0] - frames[1]).abs().amax(1).numpy()
-        bad = np.nonzero(per_step > TOL * scale)[0]
-        apart = int(bad[0]) if len(bad) else None
+        seq = torch.from_numpy(text_to_seqvec(text, tc).astype(np.int64)
+                               )[None].to(dev)
+        cond = {"speaker_embeddings": torch.from_numpy(emb)[None]}
+        if tc["use_gst"]:
+            cond["style_mel"] = torch.from_numpy(
+                compute_style_mel(wav_b, trainer.ap))
+        apart = decode_apart(models["card"], models["cpu"], seq,
+                             MS_TACO_STEPS, **cond)
         frames_served = [len(x) for x in results.values()]
         log({f"{label}_serving": {"first_ms": ms[0], "warm_ms": ms[1:],
                                   "launches": launches,
                                   "text_bucket": bucket,
                                   "frames": frames_served},
-             "card_vs_cpu_first_step_apart_by_1e-4": apart,
-             "card_vs_cpu_max_abs_16_steps": float(per_step[:16].max()),
-             "card_vs_cpu_max_abs_all_steps": float(per_step.max()),
-             "scale": scale, "card": card})
-        assert apart is None or apart >= 16, apart
+             **{f"card_vs_cpu_{k}": v for k, v in apart.items()},
+             "card": card})
+        first = apart["first_step_apart_by_1e-4"]
+        assert first is None or first >= 16, first
         out[label] = launches
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 22-25: Tacotron v1, Graves attention, streaming, Glow's gated-conv
+# and separable encoders
+# ---------------------------------------------------------------------------
+
+V1_EPOCHS = 3              # 95 training items at batch 64 (r 7): 1 step each
+V1_STEPS = 80              # served decoder budget (phase 10's)
+V1_BAD_SENTENCE = "This test sentence is made to fail."
+STREAM_CHARS = 48          # tts_tpu's chunk size and step budget a chunk
+STREAM_STEPS = 128
+STREAM_TEXT = ("The birch canoe slid on the smooth planks, and the source of "
+               "the huge river was the clear spring that ran beside the "
+               "parked truck all through the evening.")
+GLOW_ENC_EPOCHS = 2        # 95 training items at batch 32: 2 steps each
+
+
+def http_requests(synth, queries) -> list:
+    """``queries`` (each a text, or a dict of query parameters) through one
+    HTTP server over ``synth`` in a thread: per request (status, WAV,
+    latency ms); a 200 must carry a RIFF body, another status has no WAV."""
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.server.server import create_server
+
+    server = create_server(synth, port=0, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out = []
+    try:
+        for query in queries:
+            if isinstance(query, str):
+                query = {"text": query}
+            url = (f"http://127.0.0.1:{port}/api/tts?"
+                   + urllib.parse.urlencode(query))
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(url, timeout=300) as r:
+                    status, body = r.status, r.read()
+            except urllib.error.HTTPError as e:
+                status, body = e.code, b""
+            ms = 1e3 * (time.perf_counter() - t0)
+            wav = None
+            if status == 200:
+                assert body[:4] == b"RIFF", body[:16]
+                wav = read_wav(body)[0]
+            out.append((status, wav, ms))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    return out
+
+
+def served_wavs(synth, queries) -> list:
+    """``http_requests`` whose every answer is a 200: (WAV, ms) each."""
+    out = http_requests(synth, queries)
+    assert all(status == 200 for status, _, _ in out), [o[0] for o in out]
+    return [(wav, ms) for _, wav, ms in out]
+
+
+def decode_apart(model, cpu_model, seq, steps: int, **kw) -> dict:
+    """``model.inference`` on the card against ``cpu_model``'s on the
+    same weights and text, every stop masked off (threshold 2): per
+    decoder step the largest frame difference; the first step apart by
+    more than 1e-4 of the largest magnitude (None if none). Tensors in
+    ``kw`` go to each model's device."""
+    frames = []
+    for m, d in ((model, seq.device), (cpu_model, torch.device("cpu"))):
+        m.stop_threshold = 2.0
+        out = m.inference(seq.to(d), max_decoder_steps=steps,
+                          **{k: v.to(d) for k, v in kw.items()})
+        frames.append(out["decoder_outputs"][0].reshape(steps, -1).cpu())
+    scale = float(frames[1].abs().max())
+    per_step = (frames[0] - frames[1]).abs().amax(1).numpy()
+    bad = np.nonzero(per_step > TOL * scale)[0]
+    return {"first_step_apart_by_1e-4": int(bad[0]) if len(bad) else None,
+            "max_abs_16_steps": float(per_step[:16].max()),
+            "max_abs_all_steps": float(per_step.max()), "scale": scale}
+
+
+def tacotron_v1_phase(dev, root: str, card: str) -> dict:
+    """Phase 22: Tacotron v1 trained through bin/train_tts and served with
+    Griffin-Lim through HTTP and the CLI."""
+    from tts_tpu_torch.bin.synthesize import main as synthesize
+    from tts_tpu_torch.bin.train_tts import main as train_tts
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import text_to_seqvec
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models.layers import BatchNorm1d
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.models.tacotron import Tacotron
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+    from tts_tpu_torch.text import num_symbols
+    from tts_tpu_torch.train import trainer_tts
+    from tts_tpu_torch.train.checkpoint import latest_checkpoint
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = os.path.join(root, "LJSpeech")
+    if not os.path.isdir(corpus):
+        write_corpus(corpus)
+    c = load_config(os.path.join(here, "configs", "tacotron2_ljspeech.json"))
+    overrides = {"model": "tacotron", "attention_norm": "sigmoid",
+                 "memory_size": 5}
+    c.update(overrides, epochs=V1_EPOCHS, test_delay_epochs=V1_EPOCHS - 1,
+             max_decoder_steps=V1_STEPS,
+             test_sentences=[SENTENCES[0], V1_BAD_SENTENCE, SENTENCES[1]],
+             phoneme_cache_path=os.path.join(root, "phoneme_cache"))
+    c["datasets"] = [{"name": "ljspeech", "path": corpus,
+                      "meta_file_train": "metadata.csv"}]
+    cfg_path = os.path.join(root, "tacotron.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+    log({"tacotron_v1_config": "configs/tacotron2_ljspeech.json",
+         "overrides": overrides, "r": c["r"],
+         "gradual_training": c["gradual_training"],
+         "mixed_precision": c["mixed_precision"],
+         "linear_bins": c["audio"]["fft_size"] // 2 + 1})
+
+    # one test sentence made to fail (C24): it is reported, the others run
+    real_synthesis = trainer_tts.synthesis
+
+    def synthesis(model, sentence, *args, **kwargs):
+        if sentence == V1_BAD_SENTENCE:
+            raise RuntimeError("made to fail")
+        return real_synthesis(model, sentence, *args, **kwargs)
+
+    trainer_tts.synthesis = synthesis
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_tts(["--config_path", cfg_path, "--output_path",
+                             os.path.join(root, "tacotron_runs")])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        fit_launches = dict(build.LAUNCHES)
+        audios = trainer.test_run()
+    finally:
+        trainer_tts.synthesis = real_synthesis
+    assert isinstance(trainer.model, Tacotron)
+    assert sorted(audios) == ["test_0", "test_2"], sorted(audios)
+    assert all(np.isfinite(a).all() and np.abs(a).max() > 0
+               for a in audios.values())
+    assert fit_launches.get(BLK.KERNEL, 0) == 0, fit_launches
+    assert fit_launches.get(TDK.KERNEL, 0) == 0, fit_launches
+    stats = trainer.step_stats
+    assert len(stats) == V1_EPOCHS, len(stats)
+    assert all(np.isfinite(v) for s in stats for v in s.values()), stats
+    assert trainer.loss_kwargs["use_linear"] and trainer.dtype == torch.bfloat16
+    bs = c["gradual_training"][0][2]
+    ds = trainer.dataset(is_eval=False, r=trainer.r)
+    batch = trainer_tts.batch_to_device(ds.collate([ds[i] for i in range(
+        len(ds) - bs, len(ds))]), dev)
+    with torch.no_grad():
+        out = trainer_tts.forward(trainer.model.eval(), batch)
+    assert batch["linear"].shape[-1] == c["audio"]["fft_size"] // 2 + 1
+    assert out["postnet_outputs"].shape == batch["linear"].shape
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(c.get("seed", 54321))
+        init = setup_model(num_symbols(c["use_phonemes"]), 1, c).state_dict()
+    still = [n for n, p in trainer.model.named_parameters()
+             if torch.equal(p.detach().cpu(), init[n])]
+    bn_still = [n for n, m in trainer.model.named_modules()
+                if isinstance(m, BatchNorm1d)
+                and torch.equal(m.running_var.cpu(),
+                                init[f"{n}.running_var"])]
+    assert not bn_still, bn_still
+    split = taco2_step_split(trainer, batch, trainer.r)
+    ckpt = latest_checkpoint(trainer.output_path)
+    log({"tacotron_v1_training": "bin/train_tts", "r": trainer.r,
+         "batch": bs, "steps": len(stats), "wall_s": wall_s,
+         "losses": [{k: s[k] for k in ("decoder_loss", "postnet_loss",
+                                       "stopnet_loss", "loss")}
+                    for s in stats],
+         "ms_per_step": [1e3 * s["step_time"] for s in stats],
+         "loader_ms": [1e3 * s["loader_time"] for s in stats],
+         "params_unmoved": still, "fit_launches": fit_launches,
+         "test_sentences_served": sorted(audios),
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "profiled_longest_batch": split, "card": card})
+
+    # the checkpoint with Griffin-Lim through HTTP and the CLI
+    synth = Synthesizer(ckpt, cfg_path, device=dev)
+    assert synth.model.r == trainer.r
+    texts = ["Hello world!", SENTENCES[2]]
+    build.reset_launches()
+    served = served_wavs(synth, texts + texts[:1])
+    t0 = time.perf_counter()
+    path = synthesize([SENTENCES[3], cfg_path, ckpt,
+                       os.path.join(root, "cli_tacotron")])
+    cli_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    assert launches.get(BLK.KERNEL, 0) == 0, launches
+    assert launches.get(TDK.KERNEL, 0) == 0, launches
+    cli_wav, _ = read_wav(path)
+    for wav in [w for w, _ in served] + [cli_wav]:
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+    np.testing.assert_array_equal(served[0][0], served[2][0])
+
+    # the decode on the card against the CPU on the same weights
+    cpu = Synthesizer(ckpt, cfg_path, device="cpu").model
+    seq = torch.from_numpy(text_to_seqvec(texts[1], c).astype(np.int64)
+                           )[None].to(dev)
+    apart = decode_apart(synth.model, cpu, seq, V1_STEPS)
+    # a mel vocoder cannot read the linear bins (C26)
+    voc = build_models(root)
+    try:
+        Synthesizer(ckpt, cfg_path, voc["voc"], voc["vocoder_config"],
+                    device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log({"tacotron_v1_serving": [{"text": t[:40], "latency_ms": ms,
+                                  "samples": len(w)}
+                                 for t, (w, ms) in zip(texts + texts[:1],
+                                                       served)],
+         "cli_s_with_load": cli_s, "cli_samples": len(cli_wav),
+         "launches": launches, "card_vs_cpu": apart,
+         "mel_vocoder_refused": refused,
+         "phase_s": time.perf_counter() - t_phase, "card": card})
+    assert refused and "linear spectrogram" in refused
+    a = apart["first_step_apart_by_1e-4"]
+    assert a is None or a >= 16, apart
+    return {"synth": synth, "config": cfg_path}
+
+
+def graves_phase(dev, root: str, card: str) -> None:
+    """Phase 23: a Tacotron2 at tacotron2_ljspeech.json's widths with
+    Graves attention (5 components): one training step, then served
+    through synthesis()."""
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.fast_decode import supports_fused_decode
+    from tts_tpu_torch.infer.synthesis import (bucket_text_length, synthesis,
+                                               text_to_seqvec)
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.ops.attention import GravesAttention
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+    from tts_tpu_torch.text import num_symbols
+    from tts_tpu_torch.train import trainer_tts
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = os.path.join(root, "LJSpeech")
+    if not os.path.isdir(corpus):
+        write_corpus(corpus)
+    c = load_config(os.path.join(here, "configs", "tacotron2_ljspeech.json"))
+    c.update(attention_type="graves", attention_heads=5,
+             max_decoder_steps=TACO_SERVED_STEPS,
+             phoneme_cache_path=os.path.join(root, "phoneme_cache"))
+    c["datasets"] = [{"name": "ljspeech", "path": corpus,
+                      "meta_file_train": "metadata.csv"}]
+    trainer = trainer_tts.TTSTrainer(c, os.path.join(root, "graves_runs"),
+                                     device=dev)
+    model = trainer.model
+    assert isinstance(model.decoder.attention, GravesAttention)
+    assert not supports_fused_decode(model)
+    r, bs = c["gradual_training"][0][1:3]
+    model.set_r(r)
+    ds = trainer.dataset(is_eval=False, r=r)
+    batch = trainer_tts.batch_to_device(ds.collate([ds[i] for i in range(
+        len(ds) - bs, len(ds))]), dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    losses = trainer_tts.train_step(model.train(), trainer.optimizer, batch,
+                                    dict(trainer.loss_kwargs, r=r),
+                                    trainer.dtype)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    assert all(np.isfinite(v) for v in losses.values()), losses
+    moved = [n for n, p in model.named_parameters() if p.requires_grad
+             and not torch.equal(p.detach(), before[n])]
+    graves_moved = [n for n in moved if ".attention.N_a." in n]
+    assert graves_moved, "Graves's weights did not move"
+
+    model.eval().set_r(r)
+    text = SENTENCES[4]
+    bucket = bucket_text_length(len(text_to_seqvec(text, c)))
+    ms = []
+    build.reset_launches()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = synthesis(model, text, c, dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(build.LAUNCHES)
+    assert launches.get(BLK.KERNEL, 0) == 3 * (1 + bucket), launches
+    assert launches.get(TDK.KERNEL, 0) == 0, launches
+    assert np.isfinite(res["postnet_outputs"]).all()
+    cpu = setup_model(num_symbols(c["use_phonemes"]), 1, c)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval().set_r(r)
+    seq = torch.from_numpy(text_to_seqvec(text, c).astype(np.int64)
+                           )[None].to(dev)
+    apart = decode_apart(model, cpu, seq, TACO_SERVED_STEPS)
+    log({"graves_training_step": {"losses": losses, "step_ms": step_ms,
+                                  "batch": list(batch["mel"].shape),
+                                  "moved": len(moved),
+                                  "graves_moved": graves_moved},
+         "graves_serving": {"first_ms": ms[0], "warm_ms": ms[1:],
+                            "text_bucket": bucket, "launches": launches},
+         "card_vs_cpu": apart, "phase_s": time.perf_counter() - t_phase,
+         "card": card})
+    a = apart["first_step_apart_by_1e-4"]
+    assert a is None or a >= 16, apart
+
+
+def streaming_phase(dev, root: str, card: str, v1: dict) -> None:
+    """Phase 24: phase 10's Tacotron2 with phase 3's Multiband-MelGAN
+    streamed through Synthesizer.tts_stream, 48-character chunks of 128
+    steps; a Tacotron v1 model is refused (C25)."""
+    from tts_tpu_torch.infer.streaming import chunk_words, stream_mel_chunks
+    from tts_tpu_torch.infer.synthesis import (bucket_text_length,
+                                               text_to_seqvec)
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import taco2_decode as TDK
+
+    t_phase = time.perf_counter()
+    voc = build_models(root)
+    paths, cfg = build_taco2(root)
+    synth = Synthesizer(paths["taco2"], paths["taco2_config"], voc["voc"],
+                        voc["vocoder_config"], device=dev)
+    chunks = chunk_words(STREAM_TEXT, STREAM_CHARS)
+    assert len(chunks) >= 3 and max(map(len, chunks)) <= STREAM_CHARS
+    buckets = [bucket_text_length(len(text_to_seqvec(t, cfg)))
+               for t in chunks]
+    runs = []
+    for _ in range(2):              # the first run warms, the second is kept
+        build.reset_launches()
+        t0 = time.perf_counter()
+        marks, pieces = [], []
+        for wav in synth.tts_stream(STREAM_TEXT, chunk_chars=STREAM_CHARS,
+                                    decoder_steps=STREAM_STEPS):
+            marks.append(1e3 * (time.perf_counter() - t0))
+            pieces.append(wav)
+        runs.append((marks, pieces, dict(build.LAUNCHES)))
+    marks, pieces, launches = runs[-1]
+    assert len(pieces) == len(chunks) + 1, len(pieces)   # + the gap
+    assert launches.get(BLK.KERNEL, 0) == sum(1 + b for b in buckets), (
+        launches, buckets)
+    assert launches.get(TDK.KERNEL, 0) == 0, launches
+    for name in (M.PROJ_IN, M.TAIL):
+        assert launches.get(name, 0) == len(chunks), (name, launches)
+    for name in (M.UPSAMPLE, R.KERNEL):
+        assert launches.get(name, 0) > 0, (name, launches)
+    for wav in pieces[:-1]:
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+    tts_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        whole = synth.tts(STREAM_TEXT)
+        tts_ms.append(1e3 * (time.perf_counter() - t0))
+    # the first chunk's mel on the card against the CPU
+    cpu = Synthesizer(paths["taco2"], paths["taco2_config"],
+                      device="cpu").model
+    firsts = [next(stream_mel_chunks(m, STREAM_TEXT, cfg, d,
+                                     chunk_chars=STREAM_CHARS,
+                                     decoder_steps=STREAM_STEPS))["mel"]
+              for m, d in ((synth.model, dev), (cpu, torch.device("cpu")))]
+    assert firsts[0].shape == firsts[1].shape
+    err = float(np.abs(firsts[0] - firsts[1]).max())
+    scale = float(np.abs(firsts[1]).max())
+    # Tacotron v1 has no inference_truncated, in tts_tpu neither (C25)
+    try:
+        next(v1["synth"].tts_stream("Hello world.", decoder_steps=4))
+        v1_refused = None
+    except AttributeError as e:
+        v1_refused = str(e)
+    log({"streaming": {"chunks": chunks, "text_buckets": buckets,
+                       "ms_to_each_chunk": marks,
+                       "first_chunk_ms": marks[0], "stream_ms": marks[-1],
+                       "first_run_first_chunk_ms": runs[0][0][0],
+                       "tts_same_text_ms": tts_ms,
+                       "tts_samples": len(whole),
+                       "chunk_samples": [len(p) for p in pieces],
+                       "launches": launches},
+         "first_chunk_card_vs_cpu_max_abs": err, "scale": scale,
+         "tacotron_v1_refused": v1_refused,
+         "phase_s": time.perf_counter() - t_phase, "card": card})
+    assert err <= TOL * scale, (err, scale)
+    assert v1_refused and "inference_truncated" in v1_refused
+
+
+def glow_encoders_phase(dev, root: str, card: str) -> None:
+    """Phase 25: configs/glow_tts_ljspeech.json with the gated-conv and the
+    time-depth-separable encoder, trained through bin/train_glow_tts and
+    served over HTTP with phase 3's vocoder."""
+    from tts_tpu_torch.bin.train_glow_tts import main as train_glow
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import text_to_seqvec
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models.layers import BatchNorm1d
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    from tts_tpu_torch.ops.cuda import mas as MAS
+    from tts_tpu_torch.ops.glow_encoder import supports_fused_encoder
+    from tts_tpu_torch.text import num_symbols
+    from tts_tpu_torch.train import trainer_glow
+    from tts_tpu_torch.train.checkpoint import latest_checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = os.path.join(root, "LJSpeech")
+    if not os.path.isdir(corpus):
+        write_corpus(corpus)
+    voc = build_models(root)
+    for encoder_type in ("gatedconv", "time-depth-separable"):
+        t_phase = time.perf_counter()
+        c = load_config(os.path.join(here, "configs",
+                                     "glow_tts_ljspeech.json"))
+        c.update(encoder_type=encoder_type, epochs=GLOW_ENC_EPOCHS,
+                 phoneme_cache_path=os.path.join(root, "phoneme_cache"))
+        c["datasets"] = [{"name": "ljspeech", "path": corpus,
+                          "meta_file_train": "metadata.csv"}]
+        cfg_path = os.path.join(root, f"glow_{encoder_type}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(c, f)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(c.get("seed", 54321))
+            init = setup_model(num_symbols(c["use_phonemes"]), 1,
+                               c).state_dict()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_glow(["--config_path", cfg_path, "--output_path",
+                              os.path.join(root, f"glow_{encoder_type}")])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        fit = dict(build.LAUNCHES)
+        steps = trainer.global_step
+        assert steps == 4, steps
+        assert fit.get(MAS.KERNEL, 0) == steps + 1, fit   # + the DDI pass
+        assert fit.get(GEK.KERNEL, 0) == 0, fit
+        assert not supports_fused_encoder(trainer.model.encoder)
+        stats = trainer.step_stats
+        assert all(np.isfinite(v) for s in stats for v in s.values()), stats
+        norms = [n for n, m in trainer.model.named_modules()
+                 if isinstance(m, BatchNorm1d)]
+        assert bool(norms) == (encoder_type == "time-depth-separable")
+        bn_still = [n for n in norms if torch.equal(
+            trainer.model.get_submodule(n).running_var.cpu(),
+            init[f"{n}.running_var"])]
+        assert not bn_still, bn_still
+        ds = trainer.dataset
+        batch = trainer_glow.batch_to_device(ds.collate([ds[i] for i in range(
+            len(ds) - c["batch_size"], len(ds))]), dev)
+        prof = step_profile(lambda: trainer_glow.train_step(
+            trainer.model.train(), trainer.optimizer, batch))
+        ckpt = latest_checkpoint(trainer.output_path)
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+        for n in norms:
+            assert f"{n}.running_var" in saved["model"], n
+        log({"glow_encoder_training": encoder_type, "steps": steps,
+             "losses": [s["loss"] for s in stats], "wall_s": wall_s,
+             "ms_per_step": [1e3 * s["step_time"] for s in stats],
+             "loader_ms": [1e3 * s["loader_time"] for s in stats],
+             "launches": fit, "batchnorms_moved": len(norms),
+             "profiled_longest_batch": prof,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "card": card})
+
+        synth = Synthesizer(ckpt, cfg_path, voc["voc"], voc["vocoder_config"],
+                            device=dev)
+        assert synth._packed is not None
+        texts = ["Hello world!", SENTENCES[5], "Hello world!"]
+        build.reset_launches()
+        served = served_wavs(synth, texts)
+        launches = dict(build.LAUNCHES)
+        assert launches.get(GEK.KERNEL, 0) == 0, launches
+        for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+            assert launches.get(name, 0) > 0, (name, launches)
+        for wav, _ in served:
+            assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+        np.testing.assert_array_equal(served[0][0], served[2][0])
+        cpu = Synthesizer(ckpt, cfg_path, device="cpu").model
+        seq = torch.from_numpy(text_to_seqvec(SENTENCES[5], c).astype(
+            np.int64))[None]
+        outs = [m.inference(seq.to(d), noise_scale=0.0)
+                for m, d in ((synth.model, dev), (cpu, torch.device("cpu")))]
+        assert torch.equal(outs[0]["mel_lengths"].cpu(),
+                           outs[1]["mel_lengths"])
+        mel = [o["model_outputs"].cpu() for o in outs]
+        err = float((mel[0] - mel[1]).abs().max())
+        scale = float(mel[1].abs().max())
+        log({"glow_encoder_serving": encoder_type,
+             "requests": [{"text": t[:40], "latency_ms": ms,
+                           "samples": len(w)}
+                          for t, (w, ms) in zip(texts, served)],
+             "launches": launches, "mel_card_vs_cpu_max_abs": err,
+             "scale": scale, "phase_s": time.perf_counter() - t_phase,
+             "card": card})
+        assert err <= TOL * scale, (err, scale)
 
 
 def main() -> int:
@@ -3169,6 +3617,11 @@ def main() -> int:
         encoded = speaker_encoder_phase(dev, root, card)
         ms_runs = multispeaker_training_phase(dev, root, card, encoded)
         multispeaker_serving_phase(dev, root, card, encoded, ms_runs)
+    with tempfile.TemporaryDirectory() as root:
+        v1 = tacotron_v1_phase(dev, root, card)
+        graves_phase(dev, root, card)
+        streaming_phase(dev, root, card, v1)
+        glow_encoders_phase(dev, root, card)
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",

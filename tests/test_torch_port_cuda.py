@@ -965,3 +965,157 @@ def test_server_refuses_bad_speaker_id_and_serves_on(cuda, tmp_path):
         thread.join(timeout=30)
     assert len(wav) > 0 and abs(wav).max() > 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("memory_size", [-1, 5])
+def test_tacotron_v1_on_the_card(cuda, memory_size):
+    """Tacotron v1 (its fixed widths, r 3 of r_init 7, 513 linear bins):
+    the decode of 20 steps on the card against the CPU, never through B7
+    or B8; a train-mode forward moves the CBHGs' running statistics alike
+    on both."""
+    import copy
+
+    from tts_tpu_torch.models.tacotron import Tacotron
+    torch.manual_seed(0)
+    cpu = Tacotron(num_chars=60, r=3, r_init=7, linear_dim=513,
+                   memory_size=memory_size, max_decoder_steps=20,
+                   stop_threshold=2.0).eval()
+    dev = copy.deepcopy(cpu).to(cuda)
+    text = torch.randint(1, 60, (2, 32), generator=torch.Generator()
+                         .manual_seed(3))
+    lengths = torch.tensor([32, 19])
+    want = cpu.inference(text, lengths)
+    before = dict(build.LAUNCHES)
+    got = dev.inference(text.to(cuda), lengths.to(cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[BLK.KERNEL] == before.get(BLK.KERNEL, 0)
+    assert build.LAUNCHES[TDK.KERNEL] == before.get(TDK.KERNEL, 0)
+    for key in ("decoder_outputs", "postnet_outputs", "alignments",
+                "stop_logits"):
+        _close(got[key], want[key])
+    mel = torch.randn(2, 24, 80, generator=torch.Generator().manual_seed(4))
+    for m in (cpu, dev):
+        m.train()
+        for drop in m.modules():
+            if hasattr(drop, "rate"):
+                drop.rate = 0.0
+    want = cpu(text, lengths, mel)
+    got = dev(text.to(cuda), lengths.to(cuda), mel.to(cuda))
+    _close(got["postnet_outputs"].detach(), want["postnet_outputs"].detach())
+    stats = dict(cpu.named_buffers())
+    for name, a in dev.named_buffers():
+        if ".running_" in name:
+            _close(a, stats[name])
+
+
+@pytest.mark.cuda
+def test_graves_tacotron2_refuses_b8_on_the_card(cuda):
+    """A Tacotron2 with Graves attention through ``run_model``: B8 never
+    launches, B7 1 + T times; the decode matches the CPU's."""
+    from tts_tpu_torch.infer.fast_decode import supports_fused_decode
+    from tts_tpu_torch.infer.synthesis import run_model
+    from tts_tpu_torch.models.tacotron2 import Tacotron2
+    torch.manual_seed(1)
+    taco = Tacotron2(num_chars=60, r=2, encoder_dim=64, embedding_dim=64,
+                     attn_dim=32, attn_type="graves", attn_K=5,
+                     max_decoder_steps=20, stop_threshold=2.0).eval()
+    assert not supports_fused_decode(taco)
+    seq = torch.randint(1, 60, (1, 32), generator=torch.Generator()
+                        .manual_seed(5))
+    c = {"model": "tacotron2"}
+    want = run_model(taco, seq, c)
+    taco.to(cuda)
+    before = dict(build.LAUNCHES)
+    got = run_model(taco, seq.to(cuda), c)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[TDK.KERNEL] == before.get(TDK.KERNEL, 0)
+    assert (build.LAUNCHES[BLK.KERNEL] - before.get(BLK.KERNEL, 0)
+            == 1 + seq.shape[1])
+    for key in ("decoder_outputs", "stop_logits", "alignments"):
+        _close(got[key], want[key])
+
+
+@pytest.mark.cuda
+def test_streaming_runs_b7_per_chunk_on_the_card(cuda):
+    """``stream_mel_chunks`` on the card: one B7 call (1 + bucket
+    launches) per chunk, no B8; every chunk's mel equals the CPU's within
+    1e-4 of its largest magnitude."""
+    from tts_tpu_torch.infer.streaming import chunk_words, stream_mel_chunks
+    from tts_tpu_torch.infer.synthesis import (bucket_text_length,
+                                               text_to_seqvec)
+    from tts_tpu_torch.models.tacotron2 import Tacotron2
+    from tts_tpu_torch.text import num_symbols
+    torch.manual_seed(2)
+    taco = Tacotron2(num_chars=num_symbols(False), r=2, encoder_dim=64,
+                     embedding_dim=64, attn_dim=32, max_decoder_steps=16,
+                     stop_threshold=2.0).eval()
+    c = {"model": "tacotron2", "use_phonemes": False,
+         "text_cleaner": "english_cleaners"}
+    text = ("the quick brown fox jumps over the lazy dog while seven "
+            "small birds sing")
+    want = list(stream_mel_chunks(taco, text, c, torch.device("cpu"),
+                                  chunk_chars=20, decoder_steps=16))
+    taco.to(cuda)
+    before = dict(build.LAUNCHES)
+    got = list(stream_mel_chunks(taco, text, c, cuda, chunk_chars=20,
+                                 decoder_steps=16))
+    torch.cuda.synchronize()
+    chunks = chunk_words(text, 20)
+    assert len(got) == len(want) == len(chunks)
+    assert build.LAUNCHES[TDK.KERNEL] == before.get(TDK.KERNEL, 0)
+    assert (build.LAUNCHES[BLK.KERNEL] - before.get(BLK.KERNEL, 0)
+            == sum(1 + bucket_text_length(len(text_to_seqvec(t, c)))
+                   for t in chunks))
+    for g, w in zip(got, want):
+        assert g["mel"].shape == w["mel"].shape
+        _close(torch.from_numpy(g["mel"]), torch.from_numpy(w["mel"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder_type", ["gatedconv",
+                                          "time-depth-separable"])
+def test_glow_encoders_refuse_b3_on_the_card(cuda, encoder_type):
+    """Glow-TTS with the gated-conv or separable encoder: inference on the
+    card never launches B3 and matches the CPU (noise 0); a train-mode
+    forward moves the separable encoder's running statistics alike."""
+    from tts_tpu_torch.models.glow_tts import GlowTTS
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    from tts_tpu_torch.ops.glow_encoder import supports_fused_encoder
+    kw = dict(num_chars=60, encoder_type=encoder_type,
+              hidden_channels_enc=32, hidden_channels_dec=32,
+              filter_channels=64, filter_channels_dp=48, num_layers_enc=2,
+              num_flow_blocks_dec=2, num_block_layers=2)
+    torch.manual_seed(0)
+    cpu = GlowTTS(**kw).eval()
+    assert not supports_fused_encoder(cpu.encoder)
+    with torch.no_grad():     # pin the durations (ceil flips on an ulp)
+        cpu.encoder.duration_predictor.proj.weight.zero_()
+        cpu.encoder.duration_predictor.proj.bias.fill_(1.5)
+    # weight norm's computed weights are not leaves: no deepcopy
+    dev = GlowTTS(**kw)
+    dev.load_state_dict(cpu.state_dict())
+    dev.to(cuda).eval().store_inverse()
+    text = torch.randint(1, 60, (2, 21), generator=torch.Generator()
+                         .manual_seed(4))
+    lengths = torch.tensor([21, 13])
+    want = cpu.inference(text, lengths, noise_scale=0.0, y_max_length=96)
+    before = build.LAUNCHES[GEK.KERNEL]
+    got = dev.inference(text.to(cuda), lengths.to(cuda), noise_scale=0.0,
+                        y_max_length=96)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[GEK.KERNEL] == before
+    assert torch.equal(got["mel_lengths"].cpu(), want["mel_lengths"])
+    _close(got["model_outputs"], want["model_outputs"])
+    for m in (cpu, dev):
+        m.encoder.train()
+        for drop in m.modules():
+            if hasattr(drop, "rate"):
+                drop.rate = 0.0
+    with torch.no_grad():
+        _close(dev.encoder(text.to(cuda), lengths.to(cuda))[0],
+               cpu.encoder(text, lengths)[0])
+    stats = dict(cpu.named_buffers())
+    for name, a in dev.named_buffers():
+        if ".running_" in name:
+            _close(a, stats[name])

@@ -30,6 +30,8 @@ from tts_tpu_torch.ops.mas import generate_path as t_generate_path
 
 from tests.torch_port_params import module_params
 
+torch.set_num_threads(1)
+
 KW = dict(num_chars=40, hidden_channels_enc=32, hidden_channels_dec=32,
           filter_channels=64, filter_channels_dp=32, num_layers_enc=2,
           num_flow_blocks_dec=3, num_block_layers=2)

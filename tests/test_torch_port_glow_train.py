@@ -48,6 +48,8 @@ from tts_tpu_torch.train.trainer_glow import batch_to_device, train_step
 from tests.fixtures import make_ljspeech_fixture
 from tests.torch_port_params import module_params
 
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(num_chars=40, hidden_channels_enc=32, hidden_channels_dec=32,
           filter_channels=64, filter_channels_dp=32, num_layers_enc=2,

@@ -30,6 +30,8 @@ from tts_tpu_torch.models.vocoder.melgan import (GroupedStridedConv,
                                                  MelganDiscriminator)
 from tts_tpu_torch.ops import grouped_conv as GC
 
+torch.set_num_threads(1)
+
 # (B, L, cin, cout, k, stride, groups)
 GEOMS = [
     (2, 256, 16, 64, 41, 4, 16),      # down_0

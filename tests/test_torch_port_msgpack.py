@@ -23,6 +23,8 @@ from tts_tpu_torch.train.checkpoint import (is_torch_checkpoint,
 
 from tests.torch_port_params import module_params
 
+torch.set_num_threads(1)
+
 
 def _same_leaves(got, want, path="") -> int:
     """Assert the two trees equal leaf by leaf; returns the leaves seen."""

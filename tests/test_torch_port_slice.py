@@ -27,6 +27,8 @@ from tts_tpu_torch.compat.from_jax import (glow_tts_state_dict_from_jax,
 
 from tests.torch_port_params import module_params
 
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AUDIO = {"sample_rate": 22050, "num_mels": 80, "fft_size": 1024,
          "hop_length": 256, "win_length": 1024, "signal_norm": True,

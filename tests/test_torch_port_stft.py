@@ -27,6 +27,8 @@ from tts_tpu.ops.pallas import stft_kernel as J
 from tts_tpu_torch.ops.stft import (dft_banks, frames, stft_magnitude,
                                     stft_magnitude_torch)
 
+torch.set_num_threads(1)
+
 TOL = 1e-4
 # full-band resolutions on 2,500 samples (reflect padding needs more than
 # n_fft / 2), subband ones on 700 (a subband of 2,800 samples)

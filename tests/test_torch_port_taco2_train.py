@@ -245,6 +245,30 @@ def test_bfloat16_forward_near_tts_tpu(variables, jax_grads):
         assert lo < rel < hi, (key, rel)
 
 
+def test_bfloat16_forward_matches_tts_tpu_bfloat16(jmodel, variables):
+    """The mixed-precision forward against tts_tpu's (``make_train_step``'s
+    casts: bfloat16 parameters and mel). flax's LSTM carries are float32,
+    so from the encoder's BiLSTM on tts_tpu computes in float32 on the
+    bfloat16-rounded weights: the three decoders (but their prenets) and
+    the postnet. Each output within 3e-3 of the reference's norm (measured
+    1e-4 to 2.3e-3; decoders and postnet kept in bfloat16 are 4.0e-3 to
+    4.7e-3 away on the frames and 4.3e-3 on the stop logits)."""
+    from tts_tpu.train.state import _cast_floats
+
+    params, stats = variables
+    jb = {k: jnp.asarray(v) for k, v in _batch().items()}
+    want = jax.jit(lambda p: _cast_floats(jmodel.apply(
+        {"params": _cast_floats(p, jnp.bfloat16), "batch_stats": stats},
+        jb["text"], jb["text_lengths"], jb["mel"].astype(jnp.bfloat16),
+        jb["mel_lengths"], train=False), jnp.float32))(params)
+    got = forward(_port(variables), _torch_batch(_batch()), torch.bfloat16)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        ref = np.asarray(value)
+        rel = np.linalg.norm(_np(got[key]) - ref) / np.linalg.norm(ref)
+        assert rel < 3e-3, (key, rel)
+
+
 def test_gradients_match_jax_grad(variables, jax_grads):
     """Every trained tensor's gradient, the encoder's LSTM among them (run
     through nn.LSTM with grad enabled; non-zero)."""

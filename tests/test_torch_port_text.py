@@ -7,6 +7,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from tts_tpu import text as jtext
 from tts_tpu.audio.processor import AudioProcessor as JAudioProcessor
@@ -20,6 +21,8 @@ from tts_tpu_torch.audio.processor import wav_to_bytes as t_wav_to_bytes
 from tts_tpu_torch.config import load_config as t_load_config
 from tts_tpu_torch.infer.synthesis import bucket_text_length as t_bucket
 from tts_tpu_torch.infer.synthesis import text_to_seqvec as t_seqvec
+
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

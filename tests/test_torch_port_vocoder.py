@@ -40,6 +40,8 @@ from tts_tpu_torch.ops.cuda import fused_resstack as R
 
 from tests.torch_port_params import module_params
 
+torch.set_num_threads(1)
+
 ATOL = 3e-5
 
 

@@ -22,6 +22,7 @@ output channel) and ``rwd_state_dict_from_jax``;
 ``istft_melgan_state_dict_from_jax`` folds as the MelGAN one does;
 ``tacotron2_state_dict_from_jax`` packs the per-gate LSTM kernels and adds
 the zero biases tts_tpu leaves out, so it maps params only, and so do
+``tacotron_state_dict_from_jax`` (Tacotron v1's GRUs),
 ``gst_state_dict_from_jax`` (its GRU; the input features permuted) and
 ``speaker_encoder_state_dict_from_jax`` (the speaker encoder's LSTMs;
 ``speaker_loss_state_dict_from_jax`` its loss's ``w`` and ``b``). The other
@@ -92,13 +93,17 @@ def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 # Glow-TTS
 # ---------------------------------------------------------------------------
 
-def glow_tts_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
-    """``tts_tpu`` GlowTTS params (transformer encoder with prenet,
-    mean_only: what its registry builds; with speakers, ``emb_g`` and every
-    WN's ``cond_layer``) -> the port's ``GlowTTS`` state dict. Weight-normed
-    convs transfer as they are: flax WeightNorm on the (k, in, out) kernel
-    norms over all axes but ``out``, which is torch's ``dim=0`` after the
-    transpose."""
+def glow_tts_state_dict_from_jax(params: Tree, batch_stats: Tree = None
+                                 ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` GlowTTS params (mean_only, the prenet where the encoder
+    type has one: what its registry builds; the transformer, gated-conv or
+    time-depth-separable encoder, told by the tree; with speakers,
+    ``emb_g`` and every WN's ``cond_layer``) -> the port's ``GlowTTS``
+    state dict. Weight-normed convs transfer as they are: flax WeightNorm
+    on the (k, in, out) kernel norms over all axes but ``out``, which is
+    torch's ``dim=0`` after the transpose. The separable encoder's
+    BatchNorm statistics come from ``batch_stats`` (flax's initial 0 and 1
+    where it is None: tts_tpu's trainer keeps none)."""
     sd: Dict[str, np.ndarray] = {}
 
     def conv(dst: str, node: Tree) -> None:
@@ -122,13 +127,31 @@ def glow_tts_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
 
     enc = params["encoder"]
     sd["encoder.emb.weight"] = np.asarray(enc["emb"]["embedding"])
-    pre = enc["prenet"]
-    n_pre = sum(1 for k in pre if k.startswith("conv_"))
-    for i in range(n_pre):
-        conv(f"encoder.pre.conv_layers.{i}", pre[f"conv_{i}"])
-        ln(f"encoder.pre.norm_layers.{i}", pre[f"ln_{i}"])
-    conv("encoder.pre.proj", pre["proj"])
+    if "prenet" in enc:
+        pre = enc["prenet"]
+        n_pre = sum(1 for k in pre if k.startswith("conv_"))
+        for i in range(n_pre):
+            conv(f"encoder.pre.conv_layers.{i}", pre[f"conv_{i}"])
+            ln(f"encoder.pre.norm_layers.{i}", pre[f"ln_{i}"])
+        conv("encoder.pre.proj", pre["proj"])
     tr = enc["encoder"]
+    n_gated = sum(1 for k in tr if k.startswith("conv_"))
+    for i in range(n_gated):
+        conv(f"encoder.encoder.conv_layers.{i}", tr[f"conv_{i}"])
+        ln(f"encoder.encoder.norm_layers.{i}", tr[f"ln_{i}"])
+    n_tds = sum(1 for k in tr if k.startswith("layer_"))
+    tds_stats = ((batch_stats or {}).get("encoder", {})
+                 .get("encoder", {}))
+    for i in range(n_tds):
+        layer, dst = tr[f"layer_{i}"], f"encoder.encoder.layers.{i}"
+        for name in ("time_conv", "depth_conv", "time_conv2"):
+            conv(f"{dst}.{name}", layer[name])
+        for j in (1, 2, 3):
+            bn = layer[f"norm{j}"]
+            stats = tds_stats.get(f"layer_{i}", {}).get(f"norm{j}") or {
+                "mean": np.zeros_like(bn["bias"]),
+                "var": np.ones_like(bn["bias"])}
+            _batchnorm(sd, f"{dst}.norm{j}", bn, stats)
     n_layers = sum(1 for k in tr if k.startswith("attn_"))
     for i in range(n_layers):
         a, dst = tr[f"attn_{i}"], f"encoder.encoder.attn_layers.{i}"
@@ -170,7 +193,18 @@ def glow_tts_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
             wn_conv(f"{cdst}.wn.res_skip_layers.{j}", wn, f"res_skip_{j}")
         if "cond_layer" in wn:
             wn_conv(f"{cdst}.wn.cond_layer", wn, "cond_layer")
-    return _tensors(sd)
+    return _with_batch_counts(_tensors(sd))
+
+
+def _with_batch_counts(out: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """Add torch's ``num_batches_tracked`` (0) beside every BatchNorm's
+    running statistics."""
+    for key in list(out):
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +429,33 @@ def _batchnorm(sd: Dict[str, np.ndarray], dst: str, p: Tree,
     sd[f"{dst}.running_var"] = np.asarray(s["var"])
 
 
+def _attention(sd: Dict[str, np.ndarray], dst: str, att: Tree) -> None:
+    """A tts_tpu attention's params -> the port's under ``dst``: Graves
+    (``N_a_hidden`` / ``N_a_out`` -> ``N_a.0`` / ``N_a.2``) or the
+    location-sensitive one (``v``'s bias, which tts_tpu has only with
+    ``use_v_bias``, maps to zero where it has none)."""
+    if "N_a_hidden" in att:
+        for ours, theirs in (("N_a_hidden", "N_a.0"), ("N_a_out", "N_a.2")):
+            sd[f"{dst}.{theirs}.weight"] = np.asarray(att[ours]["kernel"]).T
+            sd[f"{dst}.{theirs}.bias"] = np.asarray(att[ours]["bias"])
+        return
+    for name in ("query_layer", "inputs_layer", "v"):
+        sd[f"{dst}.{name}.linear_layer.weight"] = \
+            np.asarray(att[name]["kernel"]).T
+    sd[f"{dst}.v.linear_layer.bias"] = np.asarray(
+        att["v"].get("bias", np.zeros((1,), np.float32)))
+    if "location_conv" in att:
+        loc = f"{dst}.location_layer"
+        sd[f"{loc}.location_conv1d.weight"] = _conv(
+            np.asarray(att["location_conv"]["kernel"]))
+        sd[f"{loc}.location_dense.linear_layer.weight"] = \
+            np.asarray(att["location_dense"]["kernel"]).T
+    if "transition_agent" in att:
+        sd[f"{dst}.ta.weight"] = np.asarray(
+            att["transition_agent"]["kernel"]).T
+        sd[f"{dst}.ta.bias"] = np.asarray(att["transition_agent"]["bias"])
+
+
 def _decoder_state_dict(sd: Dict[str, np.ndarray], dst: str, dec: Tree,
                         stats: Tree) -> None:
     for i in range(2):
@@ -406,22 +467,7 @@ def _decoder_state_dict(sd: Dict[str, np.ndarray], dst: str, dec: Tree,
                        dec["prenet"][f"bn_{i}"], stats["prenet"][f"bn_{i}"])
     _lstm(sd, f"{dst}.attention_rnn", dec["attention_rnn"])
     _lstm(sd, f"{dst}.decoder_rnn", dec["decoder_rnn"])
-    att, adst = dec["attention"], f"{dst}.attention"
-    for name in ("query_layer", "inputs_layer", "v"):
-        sd[f"{adst}.{name}.linear_layer.weight"] = \
-            np.asarray(att[name]["kernel"]).T
-    # tts_tpu's v has no bias (softmax is shift-invariant): a zero one
-    sd[f"{adst}.v.linear_layer.bias"] = np.zeros((1,), np.float32)
-    if "location_conv" in att:
-        loc = f"{adst}.location_layer"
-        sd[f"{loc}.location_conv1d.weight"] = _conv(
-            np.asarray(att["location_conv"]["kernel"]))
-        sd[f"{loc}.location_dense.linear_layer.weight"] = \
-            np.asarray(att["location_dense"]["kernel"]).T
-    if "transition_agent" in att:
-        sd[f"{adst}.ta.weight"] = np.asarray(
-            att["transition_agent"]["kernel"]).T
-        sd[f"{adst}.ta.bias"] = np.asarray(att["transition_agent"]["bias"])
+    _attention(sd, f"{dst}.attention", dec["attention"])
     proj = dec["linear_projection"]
     sd[f"{dst}.linear_projection.linear_layer.weight"] = \
         np.asarray(proj["kernel"]).T
@@ -469,12 +515,7 @@ def tacotron2_state_dict_from_jax(params: Tree, batch_stats: Tree
     if "gst_layer" in params:
         sd.update(_gst_state_dict(params["gst_layer"],
                                   batch_stats["gst_layer"], "gst_layer."))
-    out = _tensors(sd)
-    for key in list(out):
-        if key.endswith(".running_var"):
-            out[key[:-len("running_var")] + "num_batches_tracked"] = \
-                torch.tensor(0, dtype=torch.long)
-    return out
+    return _with_batch_counts(_tensors(sd))
 
 
 def _conv2d(kernel: np.ndarray) -> np.ndarray:
@@ -483,23 +524,25 @@ def _conv2d(kernel: np.ndarray) -> np.ndarray:
 
 
 def _gru(sd: Dict[str, np.ndarray], dst: str, cell: Tree,
-         feature_order=None) -> None:
+         feature_order=None, suffix: str = "_l0") -> None:
     """flax ``GRUCell`` (``ir``/``iz``/``in`` with biases, ``hr``/``hz``
     without, ``hn`` with) -> torch's packed ``weight_ih`` / ``weight_hh``
     (3H, in), gates r, z, n; ``bias_hh`` zero on r and z. ``feature_order``
     permutes the input features (torch's column j reads flax's row
-    ``feature_order[j]``)."""
+    ``feature_order[j]``); ``suffix`` names the torch keys (``_l0`` for
+    ``nn.GRU``'s first layer, ``_l0_reverse`` its backward direction, ""
+    for ``nn.GRUCell``)."""
     w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"])
                            for g in "rzn"], axis=1)
     if feature_order is not None:
         w_ih = w_ih[feature_order]
-    sd[f"{dst}.weight_ih_l0"] = w_ih.T
-    sd[f"{dst}.weight_hh_l0"] = np.concatenate(
+    sd[f"{dst}.weight_ih{suffix}"] = w_ih.T
+    sd[f"{dst}.weight_hh{suffix}"] = np.concatenate(
         [np.asarray(cell[f"h{g}"]["kernel"]) for g in "rzn"], axis=1).T
-    sd[f"{dst}.bias_ih_l0"] = np.concatenate(
+    sd[f"{dst}.bias_ih{suffix}"] = np.concatenate(
         [np.asarray(cell[f"i{g}"]["bias"]) for g in "rzn"])
     b_hn = np.asarray(cell["hn"]["bias"])
-    sd[f"{dst}.bias_hh_l0"] = np.concatenate(
+    sd[f"{dst}.bias_hh{suffix}"] = np.concatenate(
         [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
 
 
@@ -536,12 +579,86 @@ def gst_state_dict_from_jax(params: Tree, batch_stats: Tree
                             ) -> Dict[str, torch.Tensor]:
     """``tts_tpu`` ``GST`` params and ``batch_stats`` -> the port's ``GST``
     state dict."""
-    out = _tensors(_gst_state_dict(params, batch_stats, ""))
-    for key in list(out):
-        if key.endswith(".running_var"):
-            out[key[:-len("running_var")] + "num_batches_tracked"] = \
-                torch.tensor(0, dtype=torch.long)
-    return out
+    return _with_batch_counts(_tensors(_gst_state_dict(params, batch_stats,
+                                                       "")))
+
+
+# ---------------------------------------------------------------------------
+# Tacotron (v1)
+# ---------------------------------------------------------------------------
+
+def _cbhg(sd: Dict[str, np.ndarray], dst: str, p: Tree, s: Tree) -> None:
+    """A tts_tpu ``CBHG`` (``bank_{k}``, ``proj_{i}``, ``pre_highway``,
+    ``highway_{i}``, ``GRUCell_0`` forward / ``GRUCell_1`` backward) -> the
+    port's under ``dst``."""
+    def bn_conv(name: str, node: Tree, stats: Tree) -> None:
+        sd[f"{name}.conv1d.weight"] = _conv(np.asarray(node["conv"]["kernel"]))
+        _batchnorm(sd, f"{name}.bn", node["bn"], stats["bn"])
+
+    n_bank = sum(1 for k in p if k.startswith("bank_"))
+    for k in range(1, n_bank + 1):
+        bn_conv(f"{dst}.conv1d_banks.{k - 1}", p[f"bank_{k}"],
+                s[f"bank_{k}"])
+    n_proj = sum(1 for k in p if k.startswith("proj_"))
+    for i in range(n_proj):
+        bn_conv(f"{dst}.conv1d_projections.{i}", p[f"proj_{i}"],
+                s[f"proj_{i}"])
+    if "pre_highway" in p:
+        sd[f"{dst}.pre_highway.weight"] = np.asarray(
+            p["pre_highway"]["kernel"]).T
+    n_high = sum(1 for k in p if k.startswith("highway_"))
+    for i in range(n_high):
+        for gate in ("H", "T"):
+            node = p[f"highway_{i}"][gate]
+            sd[f"{dst}.highways.{i}.{gate}.weight"] = np.asarray(
+                node["kernel"]).T
+            sd[f"{dst}.highways.{i}.{gate}.bias"] = np.asarray(node["bias"])
+    _gru(sd, f"{dst}.gru", p["GRUCell_0"])
+    _gru(sd, f"{dst}.gru", p["GRUCell_1"], suffix="_l0_reverse")
+
+
+def tacotron_state_dict_from_jax(params: Tree, batch_stats: Tree
+                                 ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` Tacotron (v1) ``params`` and ``batch_stats`` (the
+    CBHGs' BatchNorms) -> the port's ``Tacotron`` state dict, Mozilla
+    names; the location-sensitive or Graves attention, the speaker table
+    and the GST layer where the tree has them. ``port_tacotron`` in
+    tts_tpu is the inverse."""
+    sd: Dict[str, np.ndarray] = {
+        "embedding.weight": np.asarray(params["embedding"]["embedding"])}
+
+    def dense(dst: str, node: Tree) -> None:
+        sd[f"{dst}.weight"] = np.asarray(node["kernel"]).T
+        sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+    def prenet(dst: str, node: Tree) -> None:
+        for i in range(2):
+            dense(f"{dst}.linear_layers.{i}.linear_layer", node[f"linear_{i}"])
+
+    enc = params["encoder"]
+    prenet("encoder.prenet", enc["prenet"])
+    _cbhg(sd, "encoder.cbhg.cbhg", enc["cbhg"],
+          batch_stats["encoder"]["cbhg"])
+    dec = params["decoder"]
+    prenet("decoder.prenet", dec["prenet"])
+    _gru(sd, "decoder.attention_rnn", dec["attention_rnn"], suffix="")
+    _attention(sd, "decoder.attention", dec["attention"])
+    dense("decoder.project_to_decoder_in", dec["project_to_decoder_in"])
+    for i in range(2):
+        _gru(sd, f"decoder.decoder_rnns.{i}", dec[f"decoder_rnn_{i}"],
+             suffix="")
+    dense("decoder.proj_to_mel", dec["proj_to_mel"])
+    dense("decoder.stopnet.linear", dec["stopnet"]["linear"])
+    _cbhg(sd, "postnet.cbhg", params["postnet"]["cbhg"],
+          batch_stats["postnet"]["cbhg"])
+    dense("last_linear", params["last_linear"])
+    if "speaker_embedding" in params:
+        sd["speaker_embedding.weight"] = np.asarray(
+            params["speaker_embedding"]["embedding"])
+    if "gst_layer" in params:
+        sd.update(_gst_state_dict(params["gst_layer"],
+                                  batch_stats["gst_layer"], "gst_layer."))
+    return _with_batch_counts(_tensors(sd))
 
 
 # ---------------------------------------------------------------------------
@@ -583,8 +700,8 @@ def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
     ``istft_melgan_state_dict_from_jax`` and the MelGAN family through
     ``melgan_state_dict_from_jax``, with the upsample factors and residual
     stacks of the config's generator; a TTS config's ``glow_tts`` or
-    ``tacotron2`` through their converters (Tacotron2 with the checkpoint's
-    ``batch_stats``); a speaker-encoder config (its ``model`` a dict of
+    ``tacotron2`` or ``tacotron`` through their converters (each with the
+    checkpoint's ``batch_stats``); a speaker-encoder config (its ``model`` a dict of
     widths) through ``speaker_encoder_state_dict_from_jax`` on the
     checkpoint's ``enc`` tree (the loss's ``w`` and ``b``, under ``loss``,
     through ``speaker_loss_state_dict_from_jax``)."""
@@ -603,9 +720,11 @@ def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
         return convert(params, gen.upsample_factors, gen.num_res_blocks)
     name = c.get("model", "").lower()
     if name == "glow_tts":
-        return glow_tts_state_dict_from_jax(params)
+        return glow_tts_state_dict_from_jax(params, ckpt.get("batch_stats"))
     if name == "tacotron2":
         return tacotron2_state_dict_from_jax(params,
                                              ckpt.get("batch_stats") or {})
+    if name == "tacotron":
+        return tacotron_state_dict_from_jax(params, ckpt["batch_stats"])
     raise NotImplementedError(f"no tts_tpu checkpoint converter for model "
                               f"{name!r}")

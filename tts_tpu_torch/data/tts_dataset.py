@@ -10,7 +10,9 @@ of ``SHAPE_PAD`` and the reduction factor), numpy and time-major, as in
 tts_tpu; the trainer moves them to the device and to (B, C, T). With
 ``speaker_id_mapping`` (speaker name -> id) a batch carries
 ``speaker_ids``; with ``speaker_embedding_mapping`` (wav path -> d-vector,
-from speakers.json) ``speaker_embeddings``. Sharding the dataset across
+from speakers.json) ``speaker_embeddings``; with ``compute_linear_spec``
+(Tacotron v1) ``linear``, the normalized linear spectrogram (B, T_frames,
+fft_size / 2 + 1), zero-padded as the mel. Sharding the dataset across
 data-parallel workers is not ported yet.
 """
 
@@ -41,6 +43,7 @@ class TTSDataset:
         *,
         outputs_per_step: int = 1,
         text_cleaner="english_cleaners",
+        compute_linear_spec: bool = False,
         min_seq_len: int = 0,
         max_seq_len: int = float("inf"),
         use_phonemes: bool = True,
@@ -55,6 +58,7 @@ class TTSDataset:
         self.items = [list(it) for it in items]
         self.r = outputs_per_step
         self.cleaners = text_cleaner
+        self.compute_linear_spec = compute_linear_spec
         self.min_seq_len = min_seq_len
         self.max_seq_len = max_seq_len
         self.use_phonemes = use_phonemes
@@ -160,6 +164,12 @@ class TTSDataset:
             "stop_targets": stop,
             "item_idxs": [s["item_idx"] for s in samples],
         }
+        if self.compute_linear_spec:
+            linears = [self.ap.spectrogram(s["wav"]) for s in samples]
+            linear = np.zeros((B, T_mel, linears[0].shape[1]), np.float32)
+            for i, spec in enumerate(linears):
+                linear[i, : spec.shape[0]] = spec
+            batch["linear"] = linear
         if self.speaker_id_mapping is not None:
             batch["speaker_ids"] = np.array(
                 [self.speaker_id_mapping[s["speaker_name"]] for s in samples],

@@ -17,19 +17,22 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from tts_tpu_torch.models.tacotron2 import Tacotron2
+from tts_tpu_torch.ops.attention import LocationSensitiveAttention
 from tts_tpu_torch.ops.taco2_decode import fused_decode, pack_decoder_params
 
 
 def supports_fused_decode(model: Tacotron2) -> bool:
     """The configuration the fused decode computes exactly: one speaker
     and no GST (B8 takes no speaker or style channels, as tts_tpu's check
-    says), location-sensitive softmax attention without forward attention,
-    and a plain prenet. Windowing and the "bn" prenet are refused too
+    says), location-sensitive softmax attention without forward attention
+    (Graves attention is refused, as tts_tpu refuses any ``attn_type`` but
+    "original"), and a plain prenet. Windowing and the "bn" prenet are refused too
     (tts_tpu's check misses both, ROADMAP C12 and C13): ``inference``
     windows the energies and normalises the prenet, the fused decode does
     neither."""
     att = model.decoder.attention
     return (model.num_speakers == 1 and not model.use_gst
+            and isinstance(att, LocationSensitiveAttention)
             and att.use_location and att.norm == "softmax"
             and not att.use_forward_attn and not att.windowing
             and model.decoder.prenet.prenet_type == "original")

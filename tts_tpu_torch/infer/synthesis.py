@@ -1,7 +1,7 @@
 """End-to-end synthesis helper: text -> id sequence -> model -> mel, and
 the waveform by Griffin-Lim when no vocoder is served (≙ tts_tpu/infer/
 synthesis.py: ``text_to_seqvec``, ``compute_style_mel``,
-``bucket_text_length``, the Glow-TTS and Tacotron2 branches of
+``bucket_text_length``, the Glow-TTS, Tacotron2 and Tacotron branches of
 ``run_model``, ``inv_spectrogram``, ``trim_silence`` and ``synthesis``).
 A speaker id, an external speaker embedding (d-vector) and a GST style
 wav reach the model as in tts_tpu. PyTorch runs eagerly, so there is no
@@ -65,16 +65,19 @@ def run_model(model, inputs: torch.Tensor, c: Dict,
               speaker_embedding: Optional[np.ndarray] = None,
               style_mel: Optional[np.ndarray] = None
               ) -> Dict[str, torch.Tensor]:
-    """Model-family dispatch (Glow-TTS, Tacotron2). A Tacotron2 whose
-    configuration ``supports_fused_decode`` runs ``taco2_fused_inference``
-    (the B7 and B8 kernels on the card), any other ``model.inference``; the
-    choice depends on the configuration only. Both compute tts_tpu's
-    ``Tacotron2.inference`` (``max_decoder_steps`` defaults to the model's
-    budget, with windowing where the configuration sets it). Glow-TTS in
-    eval mode runs its encoder as the fused B3 call (``GlowTTS.encode``).
+    """Model-family dispatch (Glow-TTS, Tacotron2, Tacotron). A Tacotron2
+    whose configuration ``supports_fused_decode`` runs
+    ``taco2_fused_inference`` (the B7 and B8 kernels on the card), any
+    other ``model.inference``; the choice depends on the configuration
+    only. Both compute tts_tpu's ``Tacotron2.inference``
+    (``max_decoder_steps`` defaults to the model's budget, with windowing
+    where the configuration sets it). Tacotron v1 runs ``model.inference``
+    (windowing where set; no kernel), its ``postnet_outputs`` the linear
+    spectrogram. Glow-TTS in eval mode runs its encoder as the fused B3
+    call (``GlowTTS.encode``) where ``supports_fused_encoder`` takes it.
     ``speaker_id`` and ``speaker_embedding`` (D,) become a batch of one;
-    ``style_mel`` (1, T, n_mels) goes to Tacotron2 only; a speaker id out
-    of range raises ValueError (``check_speaker_id``)."""
+    ``style_mel`` (1, T, n_mels) goes to the Tacotrons only; a speaker id
+    out of range raises ValueError (``check_speaker_id``)."""
     dev = inputs.device
     kwargs: Dict[str, Any] = {}
     check_speaker_id(model, speaker_id)
@@ -84,10 +87,10 @@ def run_model(model, inputs: torch.Tensor, c: Dict,
         kwargs["speaker_embeddings"] = torch.as_tensor(
             speaker_embedding, dtype=torch.float32, device=dev)[None]
     model_name = c.get("model", "tacotron2").lower()
-    if model_name == "tacotron2":
+    if model_name in ("tacotron", "tacotron2"):
         from tts_tpu_torch.infer.fast_decode import (supports_fused_decode,
                                                      taco2_fused_inference)
-        if supports_fused_decode(model):
+        if model_name == "tacotron2" and supports_fused_decode(model):
             return taco2_fused_inference(model, inputs, text_lengths,
                                          max_decoder_steps)
         if style_mel is not None:
@@ -96,7 +99,7 @@ def run_model(model, inputs: torch.Tensor, c: Dict,
         return model.inference(inputs, text_lengths,
                                max_decoder_steps=max_decoder_steps, **kwargs)
     if model_name != "glow_tts":
-        raise NotImplementedError(f"{model_name} is not ported yet")
+        raise KeyError(f"unknown model: {model_name}")
     out = model.inference(
         inputs, text_lengths, **kwargs,
         noise_scale=c.get("inference_noise_scale", 0.33),

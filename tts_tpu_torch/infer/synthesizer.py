@@ -1,14 +1,19 @@
-"""Synthesizer: checkpointed Glow-TTS or Tacotron2 + an optional GAN
-vocoder (the MelGAN family, ParallelWaveGAN or the iSTFT MelGAN),
-sentence-wise (≙ tts_tpu/infer/synthesizer.py for these models).
+"""Synthesizer: checkpointed Glow-TTS, Tacotron2 or Tacotron (v1) + an
+optional GAN vocoder (the MelGAN family, ParallelWaveGAN or the iSTFT
+MelGAN), sentence-wise, and streamed chunk by chunk for Tacotron2
+(``tts_stream``) (≙ tts_tpu/infer/synthesizer.py for these models).
 
 Each checkpoint is either the port's ``torch.save({"model": state_dict,
 ...})`` file (a Mozilla TTS state dict loads as it is, since the port keeps
 its key names) or a tts_tpu checkpoint (flax msgpack, read without flax and
 converted by ``compat/from_jax.py::state_dict_from_tts_tpu``); the format is
 told by the file's first bytes. A Tacotron2 checkpoint's r (``"r"``, or
-tts_tpu's ``meta["r"]``: a gradual-training run's r) is served. Without a
-vocoder the waveform is Griffin-Lim on the host, as in tts_tpu.
+tts_tpu's ``meta["r"]``: a gradual-training run's r) is served, and so is
+a Tacotron v1 one's. Without a vocoder the waveform is Griffin-Lim on the
+host, as in tts_tpu. Tacotron v1 outputs a linear spectrogram, which no
+mel vocoder reads: with a vocoder it is refused at load (ValueError;
+tts_tpu hands the generator the linear bins and fails at the first
+request, ROADMAP C26).
 
 Glow-TTS runs its encoder as one fused call (B3; packed once at load); a
 Tacotron2 whose configuration the fused decode supports runs the B7 and B8
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import re
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -38,10 +43,12 @@ from tts_tpu_torch import DeviceLike, resolve_device
 from tts_tpu_torch.audio import AudioProcessor
 from tts_tpu_torch.compat.from_jax import state_dict_from_tts_tpu
 from tts_tpu_torch.config import load_config
+from tts_tpu_torch.infer.streaming import stream_mel_chunks
 from tts_tpu_torch.infer.synthesis import (TEXT_BUCKETS, check_speaker_id,
-                                           synthesis)
+                                           inv_spectrogram, synthesis)
 from tts_tpu_torch.models.glow_tts import GlowTTS
 from tts_tpu_torch.models.registry import setup_model
+from tts_tpu_torch.models.tacotron import Tacotron
 from tts_tpu_torch.models.tacotron2 import Tacotron2
 from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
 from tts_tpu_torch.models.vocoder.istft_melgan import ISTFTMelganGenerator
@@ -96,7 +103,7 @@ class Synthesizer:
                 self.model.encoder.packed_weights()   # B3's operands, once
         # serve at the checkpoint's reduction factor: a gradual-training
         # run stopped mid-schedule serves at its trained r, not the config's
-        if isinstance(self.model, Tacotron2) and ckpt.get("r"):
+        if isinstance(self.model, (Tacotron, Tacotron2)) and ckpt.get("r"):
             self.model.set_r(int(ckpt["r"]))
 
         self.vocoder_model = None
@@ -104,6 +111,12 @@ class Synthesizer:
             self._load_vocoder(vocoder_checkpoint, vocoder_config)
 
     def _load_vocoder(self, checkpoint: str, config: str) -> None:
+        if isinstance(self.model, Tacotron):
+            raise ValueError(
+                "Tacotron (v1) outputs a linear spectrogram of "
+                f"{self.model.last_linear.out_features} bins, which a mel "
+                "vocoder cannot read; serve it without a vocoder "
+                "(Griffin-Lim)")
         self.vocoder_config = load_config(config)
         self.vocoder_ap = AudioProcessor(**self.vocoder_config.audio)
         # fold weight norm once at load: serving runs bare kernels
@@ -189,6 +202,34 @@ class Synthesizer:
         print(f" > Processing time: {process_time:.3f}")
         print(f" > Real-time factor: {process_time / max(audio_time, 1e-6):.3f}")
         return out
+
+    def tts_stream(self, text: str, speaker_id: Optional[int] = None,
+                   chunk_chars: int = 48, decoder_steps: int = 128
+                   ) -> Iterator[np.ndarray]:
+        """Waveform chunks of ``text`` as they are ready (≙
+        ``tts_stream``): each sentence is cut at word boundaries into
+        chunks of at most ``chunk_chars`` characters, each chunk decoded
+        by ``infer/streaming.py::stream_mel_chunks`` (the decoder state
+        carried over) in ``decoder_steps`` steps and vocoded at once
+        (``_vocode``: B1/B2 for the MelGAN family) or turned to audio by
+        Griffin-Lim; 10,000 samples of silence follow each sentence.
+        Tacotron2 only: Glow-TTS raises ValueError, Tacotron v1
+        AttributeError (it has no ``inference_truncated``, as in tts_tpu:
+        ROADMAP C25)."""
+        check_speaker_id(self.model, speaker_id)
+        for sentence in split_into_sentences(text) or [text]:
+            for piece in stream_mel_chunks(
+                    self.model, sentence, self.tts_config, self.device,
+                    chunk_chars=chunk_chars, decoder_steps=decoder_steps,
+                    speaker_id=speaker_id):
+                mel = piece["mel"]
+                if mel.shape[0] == 0:
+                    continue
+                if self.vocoder_model is not None:
+                    yield self._vocode(mel)
+                else:
+                    yield inv_spectrogram(mel, self.ap, self.tts_config)
+            yield np.zeros(10000, np.float32)  # inter-sentence gap
 
     def prewarm(self, buckets: Optional[List[int]] = None) -> float:
         """Serve one sentence per text bucket (``buckets``, or every bucket

@@ -91,26 +91,30 @@ def tacotron_loss(outputs: Dict[str, Tensor], batch: Dict[str, Tensor], *,
                   postnet_alpha: float = 0.25,
                   stopnet_pos_weight: float = 10.0, ga_alpha: float = 0.0,
                   decoder_diff_spec_alpha: float = 0.0,
-                  postnet_diff_spec_alpha: float = 0.0
+                  postnet_diff_spec_alpha: float = 0.0,
+                  use_linear: bool = False
                   ) -> Dict[str, Tensor]:
-    """The Tacotron2 loss: its terms by name and their weighted sum under
-    ``"loss"``. ``batch`` holds ``mel`` (B, T, n_mels), ``mel_lengths``,
-    ``stop_targets`` (B, T / r) and ``text_lengths``. With double decoder
+    """The Tacotron and Tacotron2 loss: its terms by name and their
+    weighted sum under ``"loss"``. ``batch`` holds ``mel`` (B, T, n_mels),
+    ``mel_lengths``, ``stop_targets`` (B, T / r) and ``text_lengths``; with
+    ``use_linear`` (Tacotron v1) the post-net's target is ``batch["linear"]``
+    (B, T, n_freq) where the batch has it, else the mel, as in tts_tpu. With double decoder
     consistency the coarse decoder's L1 and the distance of the alignments
     from the coarse ones (its steps stretched by integer index, no gradient)
     are added; with the backward decoder its L1 and its distance from the
     forward decoder's frames (no gradient)."""
     mel, lengths = batch["mel"], batch["mel_lengths"]
+    post_target = batch.get("linear", mel) if use_linear else mel
     dec, post = outputs["decoder_outputs"], outputs["postnet_outputs"]
     losses: Dict[str, Tensor] = {}
     if loss_masking:
         losses["decoder_loss"] = masked_loss(dec, mel, lengths, "l1",
                                              seq_len_norm)
-        losses["postnet_loss"] = masked_loss(post, mel, lengths, "l1",
-                                             seq_len_norm)
+        losses["postnet_loss"] = masked_loss(post, post_target, lengths,
+                                             "l1", seq_len_norm)
     else:
         losses["decoder_loss"] = (dec - mel).abs().mean()
-        losses["postnet_loss"] = (post - mel).abs().mean()
+        losses["postnet_loss"] = (post - post_target).abs().mean()
     total = (decoder_alpha * losses["decoder_loss"]
              + postnet_alpha * losses["postnet_loss"])
 
@@ -131,7 +135,7 @@ def tacotron_loss(outputs: Dict[str, Tensor], batch: Dict[str, Tensor], *,
             "decoder_diff_spec_loss"]
     if postnet_diff_spec_alpha > 0:
         losses["postnet_diff_spec_loss"] = differential_spectral_loss(
-            post, mel, lengths, "l1", seq_len_norm)
+            post, post_target, lengths, "l1", seq_len_norm)
         total = total + postnet_diff_spec_alpha * losses[
             "postnet_diff_spec_loss"]
 

@@ -1,9 +1,13 @@
-"""Glow-TTS text encoder: embeddings -> prenet -> rel-pos transformer ->
-mean projection + duration predictor (≙ tts_tpu/models/glow/encoder.py,
-transformer type with prenet, mean_only — the configuration tts_tpu's
-registry builds), in PyTorch's (B, C, T) layout. With ``c_in_channels`` >
-0 the duration predictor reads the speaker vector too, concatenated after
-the encoder's channels."""
+"""Glow-TTS text encoder: embeddings -> (prenet) -> rel-pos transformer,
+gated convs or time-depth-separable convs -> mean projection + duration
+predictor (≙ tts_tpu/models/glow/encoder.py with its prenet and mean_only,
+the configuration tts_tpu's registry builds; ``encoder_type`` picks the
+body as there), in PyTorch's (B, C, T) layout, Mozilla's names
+(``encoder.conv_layers`` / ``norm_layers`` for the gated convs,
+``encoder.layers.{i}.time_conv`` / ``depth_conv`` / ``time_conv2`` /
+``norm1-3`` for the separable ones). With ``c_in_channels`` > 0 the
+duration predictor reads the speaker vector too, concatenated after the
+encoder's channels."""
 
 from __future__ import annotations
 
@@ -17,7 +21,10 @@ from tts_tpu_torch.models.dropout import Dropout
 from tts_tpu_torch.models.glow.flows import ConvLayerNorm
 from tts_tpu_torch.models.glow.transformer import (LayerNorm,
                                                    RelPosTransformer)
+from tts_tpu_torch.models.layers import BatchNorm1d
 from tts_tpu_torch.ops.masking import sequence_mask
+
+ENCODER_TYPES = ("transformer", "gatedconv", "time-depth-separable")
 
 
 class DurationPredictor(nn.Module):
@@ -43,28 +50,109 @@ class DurationPredictor(nn.Module):
         return self.proj(y * x_mask) * x_mask        # (B, 1, T)
 
 
+class GatedConvBlock(nn.Module):
+    """Per layer: dropout -> conv (k 5, 2C, on the masked input) ->
+    LayerNorm (eps 1e-4) -> GLU -> residual (≙ GatedConvBlock). The output
+    is not masked, as in tts_tpu."""
+
+    def __init__(self, channels: int, kernel_size: int = 5,
+                 num_layers: int = 9, dropout_rate: float = 0.1):
+        super().__init__()
+        self.dropout = Dropout(dropout_rate)
+        self.conv_layers = nn.ModuleList(
+            nn.Conv1d(channels, 2 * channels, kernel_size,
+                      padding=kernel_size // 2) for _ in range(num_layers))
+        self.norm_layers = nn.ModuleList(LayerNorm(2 * channels)
+                                         for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+        o = x
+        for conv, norm in zip(self.conv_layers, self.norm_layers):
+            a, b = torch.chunk(norm(conv(self.dropout(o) * x_mask)), 2,
+                               dim=1)
+            o = o + a * torch.sigmoid(b)
+        return o
+
+
+class TimeDepthSeparableConv(nn.Module):
+    """1x1 conv to 2C -> BN -> GLU -> depthwise conv (k) -> BN -> swish ->
+    1x1 conv -> BN, plus the layer's input (≙ TimeDepthSeparableConv).
+    BatchNorm is flax's ``momentum=0.9``, eps 1e-5 (``layers.BatchNorm1d``:
+    running statistics in ``eval()`` mode, the batch's, moved 0.1 of the
+    way to them, in ``train()`` mode)."""
+
+    def __init__(self, channels: int, kernel_size: int):
+        super().__init__()
+        self.time_conv = nn.Conv1d(channels, 2 * channels, 1)
+        self.norm1 = BatchNorm1d(2 * channels)
+        self.depth_conv = nn.Conv1d(channels, channels, kernel_size,
+                                    padding=kernel_size // 2,
+                                    groups=channels)
+        self.norm2 = BatchNorm1d(channels)
+        self.time_conv2 = nn.Conv1d(channels, channels, 1)
+        self.norm3 = BatchNorm1d(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = torch.chunk(self.norm1(self.time_conv(x)), 2, dim=1)
+        y = self.norm2(self.depth_conv(a * torch.sigmoid(b)))
+        y = self.norm3(self.time_conv2(y * torch.sigmoid(y)))
+        return x + y
+
+
+class TimeDepthSeparableConvBlock(nn.Module):
+    """``num_layers`` separable layers, each on its masked input; the
+    output is not masked (≙ TimeDepthSeparableConvBlock)."""
+
+    def __init__(self, channels: int, kernel_size: int = 5,
+                 num_layers: int = 3):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TimeDepthSeparableConv(channels, kernel_size)
+            for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x * x_mask)
+        return x
+
+
 class GlowTTSEncoder(nn.Module):
-    """(≙ GlowTTSEncoder with encoder_type="transformer"). Dropout: 0.5 in
-    the prenet and 0.1 in the duration predictor, as tts_tpu fixes them;
-    ``dropout_rate`` in the transformer."""
+    """(≙ GlowTTSEncoder). ``encoder_type``: "transformer" (prenet, then
+    ``num_layers`` rel-pos attention layers), "gatedconv" (no prenet, 3 +
+    ``num_layers`` gated convs) or "time-depth-separable" (prenet, then 3 +
+    ``num_layers`` separable layers). Dropout: 0.5 in the prenet and 0.1
+    in the duration predictor, as tts_tpu fixes them; ``dropout_rate`` in
+    the transformer and the gated convs."""
 
     def __init__(self, num_chars: int = 200, out_channels: int = 80,
                  hidden_channels: int = 192, filter_channels: int = 768,
-                 filter_channels_dp: int = 256, num_heads: int = 2,
+                 filter_channels_dp: int = 256,
+                 encoder_type: str = "transformer", num_heads: int = 2,
                  num_layers: int = 6, kernel_size: int = 3,
                  rel_attn_window_size: Optional[int] = 4,
                  dropout_rate: float = 0.1, c_in_channels: int = 0):
         super().__init__()
+        if encoder_type not in ENCODER_TYPES:
+            raise ValueError(f"unknown encoder type {encoder_type}")
+        self.encoder_type = encoder_type
         self.hidden_channels = hidden_channels
         self.c_in_channels = c_in_channels
         self.emb = nn.Embedding(num_chars, hidden_channels)
         nn.init.normal_(self.emb.weight, 0.0, hidden_channels ** -0.5)
-        self.pre = ConvLayerNorm(hidden_channels, hidden_channels,
-                                 hidden_channels, kernel_size=5, num_layers=3,
-                                 dropout_rate=0.5)
-        self.encoder = RelPosTransformer(
-            hidden_channels, filter_channels, num_heads, num_layers,
-            kernel_size, rel_attn_window_size, dropout_rate)
+        if encoder_type != "gatedconv":
+            self.pre = ConvLayerNorm(hidden_channels, hidden_channels,
+                                     hidden_channels, kernel_size=5,
+                                     num_layers=3, dropout_rate=0.5)
+        if encoder_type == "transformer":
+            self.encoder = RelPosTransformer(
+                hidden_channels, filter_channels, num_heads, num_layers,
+                kernel_size, rel_attn_window_size, dropout_rate)
+        elif encoder_type == "gatedconv":
+            self.encoder = GatedConvBlock(hidden_channels, 5, 3 + num_layers,
+                                          dropout_rate)
+        else:
+            self.encoder = TimeDepthSeparableConvBlock(hidden_channels, 5,
+                                                       3 + num_layers)
         self.proj_m = nn.Conv1d(hidden_channels, out_channels, 1)
         self.duration_predictor = DurationPredictor(
             hidden_channels + c_in_channels, filter_channels_dp)
@@ -81,7 +169,9 @@ class GlowTTSEncoder(nn.Module):
         x = self.emb(x_ids) * math.sqrt(self.hidden_channels)
         x = x.transpose(1, 2)                                   # (B, C, T)
         x_mask = sequence_mask(x_lengths, x_ids.shape[1]).to(x.dtype)[:, None]
-        x = self.encoder(self.pre(x, x_mask), x_mask)
+        if hasattr(self, "pre"):
+            x = self.pre(x, x_mask)
+        x = self.encoder(x, x_mask)
         o_mean = self.proj_m(x) * x_mask
         o_log_scale = torch.zeros_like(o_mean)
         x_dp = x.detach()

@@ -1,4 +1,5 @@
-"""Glow-TTS: transformer encoder + duration predictor + flow decoder + MAS
+"""Glow-TTS: text encoder (transformer, gated convs or time-depth-separable
+convs: ``encoder_type``) + duration predictor + flow decoder + MAS
 (≙ tts_tpu/models/glow_tts.py).
 
 Training (``forward``) runs the mel through the flows to the latent z,
@@ -43,7 +44,8 @@ class GlowTTS(nn.Module):
                  out_channels: int = 80,
                  hidden_channels_enc: int = 192,
                  hidden_channels_dec: int = 192, filter_channels: int = 768,
-                 filter_channels_dp: int = 256, num_heads: int = 2,
+                 filter_channels_dp: int = 256,
+                 encoder_type: str = "transformer", num_heads: int = 2,
                  num_layers_enc: int = 6, kernel_size: int = 3,
                  rel_attn_window_size: Optional[int] = 4,
                  kernel_size_dec: int = 5, dilation_rate: int = 1,
@@ -58,7 +60,8 @@ class GlowTTS(nn.Module):
             num_chars=num_chars, out_channels=out_channels,
             hidden_channels=hidden_channels_enc,
             filter_channels=filter_channels,
-            filter_channels_dp=filter_channels_dp, num_heads=num_heads,
+            filter_channels_dp=filter_channels_dp,
+            encoder_type=encoder_type, num_heads=num_heads,
             num_layers=num_layers_enc, kernel_size=kernel_size,
             rel_attn_window_size=rel_attn_window_size,
             dropout_rate=dropout_rate, c_in_channels=c_in_channels)

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tts_tpu_torch.models.layers import BatchNorm1d
+from tts_tpu_torch.models.layers import BatchNorm1d, hold_gru_rz_bias
 
 FILTERS = (32, 32, 64, 64, 128, 128)
 
@@ -39,14 +39,6 @@ def same_pad(n: int, kernel: int = 3, stride: int = 2) -> Tuple[int, int]:
     ceil(n / stride), the extra pad at the high end."""
     total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
     return total // 2, total - total // 2
-
-
-def _zero_rz(hidden: int):
-    def hook(grad: torch.Tensor) -> torch.Tensor:
-        grad = grad.clone()
-        grad[:2 * hidden] = 0
-        return grad
-    return hook
 
 
 class ReferenceEncoder(nn.Module):
@@ -65,9 +57,7 @@ class ReferenceEncoder(nn.Module):
             width = -(-width // 2)
         self.recurrence = nn.GRU(FILTERS[-1] * width, out_dim,
                                  batch_first=True)
-        with torch.no_grad():
-            self.recurrence.bias_hh_l0[:2 * out_dim].zero_()
-        self.recurrence.bias_hh_l0.register_hook(_zero_rz(out_dim))
+        hold_gru_rz_bias(self.recurrence.bias_hh_l0, out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x[:, None]                               # (B, 1, T, n_mel)
@@ -76,6 +66,9 @@ class ReferenceEncoder(nn.Module):
             y = torch.relu(bn(conv(F.pad(y, (*w_pad, *h_pad)))))
         B, C, T, M = y.shape
         y = y.transpose(1, 2).reshape(B, T, C * M)
+        # the GRU computes in its weights' dtype (float32 in mixed
+        # precision, as tts_tpu's float32 carry makes its flax GRU)
+        y = y.to(self.recurrence.weight_hh_l0.dtype)
         return self.recurrence(y)[1][0]
 
 

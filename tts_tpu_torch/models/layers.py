@@ -46,14 +46,14 @@ class Linear(nn.Module):
 class BatchNorm1d(nn.BatchNorm1d):
     """BatchNorm over the channels of (B, C) or (B, C, T), eps 1e-5. In
     ``train()`` mode it normalises by the batch's statistics and moves the
-    running ones 0.1 of the way to them, the running variance to the
-    *biased* batch variance, as flax's ``BatchNorm(momentum=0.9)`` does
-    (``torch.nn.BatchNorm1d`` takes the unbiased one). The statistics are
-    float32 whatever the input's dtype; in ``eval()`` mode a bfloat16 input
-    is normalised in float32 and cast back, as flax does."""
+    running ones ``momentum`` (0.1) of the way to them, the running variance
+    to the *biased* batch variance, as flax's ``BatchNorm(momentum=1 -
+    momentum)`` does (``torch.nn.BatchNorm1d`` takes the unbiased one). The
+    statistics are float32 whatever the input's dtype; in ``eval()`` mode a
+    bfloat16 input is normalised in float32 and cast back, as flax does."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, momentum: float = 0.1):
+        super().__init__(num_features, eps=1e-5, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -69,6 +69,20 @@ class BatchNorm1d(nn.BatchNorm1d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+def hold_gru_rz_bias(bias_hh: torch.Tensor, hidden: int) -> None:
+    """flax's ``GRUCell`` has no hidden-side bias on the r and z gates:
+    hold that part of a torch GRU's ``bias_hh`` (gates r, z, n) at zero,
+    its gradient dropped by a hook."""
+    def hook(grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone()
+        grad[:2 * hidden] = 0
+        return grad
+
+    with torch.no_grad():
+        bias_hh[:2 * hidden].zero_()
+    bias_hh.register_hook(hook)
 
 
 class LinearBN(Linear):
@@ -209,7 +223,9 @@ class Encoder(nn.Module):
             x = layer(x)
             if mask is not None:
                 x = x * mask
-        x = x.transpose(1, 2)
+        # the LSTM computes in its weights' dtype (float32 in mixed
+        # precision, as tts_tpu's float32 carry makes its flax LSTM)
+        x = x.transpose(1, 2).to(self.lstm.weight_hh_l0.dtype)
         if self.training or torch.is_grad_enabled():
             seq = nn.utils.rnn.pack_padded_sequence(
                 x, lengths.cpu().long(), batch_first=True,

@@ -30,8 +30,14 @@ with ``use_gst`` the GST style vector of a style mel (the target mel in
 training) are broadcast over the text and concatenated to the encoder's
 outputs, so the decoder reads ``encoder_dim`` + those widths.
 Such models are refused by ``infer/fast_decode.py::supports_fused_decode``
-(B8 takes no conditioning); their encoder still runs B7 at eval.
-Not ported yet: streaming (``inference_truncated``).
+(B8 takes no conditioning); their encoder still runs B7 at eval. So is
+Graves attention (``attn_type="graves"``, ``attn_K`` mixture components).
+
+``inference_truncated`` is the streaming decode (``infer/streaming.py``):
+the attention state starts afresh for each text chunk while the LSTM
+states, the context and the last frame carry over in ``decoder_state``.
+It runs the plain loop, as tts_tpu does: B8 takes no carried state. Its
+encoder runs B7 on the card (eval, no grad).
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ class Decoder(nn.Module):
                  r_init: int = 0, query_dim: int = 1024,
                  decoder_rnn_dim: int = 1024, prenet_type: str = "original",
                  prenet_dropout: bool = True, attn_type: str = "original",
-                 attn_dim: int = 128, location_attn: bool = True,
+                 attn_dim: int = 128, attn_K: int = 5,
+                 location_attn: bool = True,
                  use_forward_attn: bool = False,
                  use_transition_agent: bool = False,
                  forward_attn_mask: bool = False, attn_norm: str = "softmax",
@@ -79,7 +86,7 @@ class Decoder(nn.Module):
         self.attention_rnn.bias_hh.requires_grad_(False)
         self.attention = init_attn(
             attn_type, query_dim=query_dim, embedding_dim=in_features,
-            attn_dim=attn_dim, location_attention=location_attn,
+            attn_dim=attn_dim, attn_K=attn_K, location_attention=location_attn,
             use_forward_attn=use_forward_attn,
             use_transition_agent=use_transition_agent,
             forward_attn_mask=forward_attn_mask, norm=attn_norm,
@@ -150,7 +157,8 @@ class Tacotron2(nn.Module):
                  gst_num_style_tokens: int = 10, gst_embedding_dim: int = 512,
                  gst_num_heads: int = 4, prenet_type: str = "original",
                  prenet_dropout: bool = True, attn_type: str = "original",
-                 attn_dim: int = 128, location_attn: bool = True,
+                 attn_dim: int = 128, attn_K: int = 5,
+                 location_attn: bool = True,
                  use_forward_attn: bool = False,
                  use_transition_agent: bool = False,
                  forward_attn_mask: bool = False, attn_norm: str = "softmax",
@@ -187,7 +195,7 @@ class Tacotron2(nn.Module):
         dec_kwargs = dict(
             n_mels=n_mels, prenet_type=prenet_type,
             prenet_dropout=prenet_dropout, attn_type=attn_type,
-            attn_dim=attn_dim, location_attn=location_attn,
+            attn_dim=attn_dim, attn_K=attn_K, location_attn=location_attn,
             use_forward_attn=use_forward_attn,
             use_transition_agent=use_transition_agent,
             forward_attn_mask=forward_attn_mask, attn_norm=attn_norm,
@@ -264,27 +272,29 @@ class Tacotron2(nn.Module):
                 "stop_logits": stop_logits,
                 "mel_lengths": active.sum(dim=1, dtype=torch.int32) * self.r}
 
-    @torch.no_grad()
-    def inference(self, text: torch.Tensor,
-                  text_lengths: Optional[torch.Tensor] = None,
-                  speaker_ids: Optional[torch.Tensor] = None,
-                  speaker_embeddings: Optional[torch.Tensor] = None,
-                  style_mel: Optional[torch.Tensor] = None,
-                  max_decoder_steps: Optional[int] = None,
-                  use_windowing: bool = True) -> Dict[str, torch.Tensor]:
-        """Greedy decode over ``max_decoder_steps`` (the model's budget by
-        default) in plain PyTorch, one decoder step per loop turn."""
+    def _decode(self, text: torch.Tensor,
+                text_lengths: Optional[torch.Tensor], steps: Optional[int],
+                use_windowing: bool, decoder_state: Optional[Carry],
+                **conditioning) -> Tuple[Dict[str, torch.Tensor], Carry,
+                                         torch.Tensor]:
+        """The plain greedy decode, one decoder step per loop turn, over
+        ``steps`` (the model's budget by default) from the LSTM states,
+        context and last frame of ``decoder_state`` (zeros when None; the
+        attention always set up afresh) -> (``finish``'s outputs, the
+        final carry, the last frame)."""
         B = text.shape[0]
         if text_lengths is None:
             text_lengths = torch.full((B,), text.shape[1], dtype=torch.int32,
                                       device=text.device)
-        steps = max_decoder_steps or self.max_decoder_steps
+        steps = steps or self.max_decoder_steps
         enc, mask = self.encode(text, text_lengths, mask_pads=True,
-                                speaker_ids=speaker_ids,
-                                speaker_embeddings=speaker_embeddings,
-                                style_mel=style_mel)
+                                **conditioning)
         carry = self.decoder.init_carry(enc, mask)
         memory = enc.new_zeros(B, self.n_mels)
+        if decoder_state is not None:
+            carry.update({k: decoder_state[k]
+                          for k in ("attn_rnn", "dec_rnn", "context")})
+            memory = decoder_state["last_frame"]
         frames, stops, aligns = [], [], []
         for _ in range(steps):
             carry, (fr, stop, align) = self.decoder(carry, memory,
@@ -295,8 +305,49 @@ class Tacotron2(nn.Module):
             aligns.append(align)
         frames = torch.stack(frames, dim=1).reshape(B, steps * self.r,
                                                     self.n_mels)
-        return self.finish(frames, torch.stack(stops, dim=1),
-                           torch.stack(aligns, dim=1))
+        out = self.finish(frames, torch.stack(stops, dim=1),
+                          torch.stack(aligns, dim=1))
+        return out, carry, memory
+
+    @torch.no_grad()
+    def inference(self, text: torch.Tensor,
+                  text_lengths: Optional[torch.Tensor] = None,
+                  speaker_ids: Optional[torch.Tensor] = None,
+                  speaker_embeddings: Optional[torch.Tensor] = None,
+                  style_mel: Optional[torch.Tensor] = None,
+                  max_decoder_steps: Optional[int] = None,
+                  use_windowing: bool = True) -> Dict[str, torch.Tensor]:
+        """Greedy decode over ``max_decoder_steps`` (the model's budget by
+        default) in plain PyTorch, one decoder step per loop turn."""
+        return self._decode(text, text_lengths, max_decoder_steps,
+                            use_windowing, None, speaker_ids=speaker_ids,
+                            speaker_embeddings=speaker_embeddings,
+                            style_mel=style_mel)[0]
+
+    @torch.no_grad()
+    def inference_truncated(self, text: torch.Tensor,
+                            text_lengths: Optional[torch.Tensor] = None,
+                            decoder_state: Optional[Carry] = None,
+                            speaker_ids: Optional[torch.Tensor] = None,
+                            speaker_embeddings: Optional[torch.Tensor] = None,
+                            style_mel: Optional[torch.Tensor] = None,
+                            max_decoder_steps: Optional[int] = None
+                            ) -> Dict[str, object]:
+        """One chunk of a streamed decode (≙ ``inference_truncated``):
+        ``inference``'s outputs for ``text``, decoded without windowing
+        from the attention LSTM and decoder LSTM states, context and last
+        frame of ``decoder_state`` (the previous chunk's; zeros when None),
+        the attention set up afresh; plus the new ``decoder_state``."""
+        out, carry, last_frame = self._decode(
+            text, text_lengths, max_decoder_steps, False, decoder_state,
+            speaker_ids=speaker_ids, speaker_embeddings=speaker_embeddings,
+            style_mel=style_mel)
+        result: Dict[str, object] = dict(out)
+        result["decoder_state"] = {"attn_rnn": carry["attn_rnn"],
+                                   "dec_rnn": carry["dec_rnn"],
+                                   "context": carry["context"],
+                                   "last_frame": last_frame}
+        return result
 
     def teacher_forced(self, decoder: Decoder, enc: torch.Tensor,
                        mask: torch.Tensor, mel: torch.Tensor

@@ -7,11 +7,14 @@ The state is a dict of tensors carried by the caller, as in tts_tpu:
 ``attention_weights`` and ``attention_cum`` (B, T), and with forward
 attention ``alpha`` (B, T) and ``u`` (B, 1). Variants: softmax or sigmoid
 normalisation, eval-time windowing, forward attention with the optional
-transition agent and forward mask. ``GravesAttention`` is not ported yet.
+transition agent and forward mask. ``GravesAttention`` (≙ tts_tpu's
+``GravesAttention``) is the discretized Gaussian mixture, its state
+``mu_prev`` (B, K) and ``attention_weights`` (B, T).
 
-``v`` keeps Mozilla's bias, held fixed; tts_tpu has none
-(``use_v_bias=False``), so a tts_tpu tree maps to a zero bias. Under
-softmax a bias is a constant shift and changes nothing.
+``v`` keeps Mozilla's bias. tts_tpu gives it one only with ``use_v_bias``
+(Tacotron v1's sigmoid norm, which a shift changes): there it trains;
+otherwise it is held fixed and a tts_tpu tree maps to a zero bias (under
+softmax a bias is a constant shift and changes nothing).
 
 The location features take the energies' dtype, so bfloat16 parameters
 (mixed-precision training) run on the float32 alignment state.
@@ -56,14 +59,14 @@ class LocationSensitiveAttention(nn.Module):
                  use_transition_agent: bool = False,
                  forward_attn_mask: bool = False, norm: str = "softmax",
                  windowing: bool = False, win_back: int = 2,
-                 win_front: int = 6):
+                 win_front: int = 6, use_v_bias: bool = False):
         super().__init__()
         if norm not in ("softmax", "sigmoid"):
             raise ValueError(f"unknown attention norm: {norm}")
         self.query_layer = Linear(query_dim, attn_dim, bias=False)
         self.inputs_layer = Linear(embedding_dim, attn_dim, bias=False)
         self.v = Linear(attn_dim, 1, bias=True)
-        self.v.linear_layer.bias.requires_grad_(False)
+        self.v.linear_layer.bias.requires_grad_(use_v_bias)
         self.use_location = use_location
         if use_location:
             self.location_layer = LocationLayer(attn_dim, location_filters,
@@ -163,17 +166,68 @@ class LocationSensitiveAttention(nn.Module):
         return context, new_state
 
 
+class GravesAttention(nn.Module):
+    """Discretized GMM attention (GMMv2b, ≙ tts_tpu's ``GravesAttention``)
+    under Mozilla's names: ``N_a.0`` (query_dim -> query_dim, ReLU) and
+    ``N_a.2`` (-> 3K: mixture logits g, scales b, mean steps k). The means
+    only grow: mu_t = mu_{t-1} + softplus(k). The mass at position j is
+    F(j + 1) - F(j) of the mixture's CDF F(x) = sum_k g_k sigmoid((x -
+    mu_k) / sigma_k), floored at 1e-8 and then masked; it is not
+    renormalised."""
+
+    def __init__(self, query_dim: int, K: int = 5):
+        super().__init__()
+        self.K = K
+        self.N_a = nn.Sequential(nn.Linear(query_dim, query_dim), nn.ReLU(),
+                                 nn.Linear(query_dim, 3 * K))
+
+    def init_state(self, batch: int, t_in: int, device) -> State:
+        return {"mu_prev": torch.zeros(batch, self.K, device=device),
+                "attention_weights": torch.zeros(batch, t_in,
+                                                 device=device)}
+
+    def preprocess_inputs(self, inputs: torch.Tensor) -> None:
+        return None
+
+    def forward(self, query: torch.Tensor, inputs: torch.Tensor,
+                processed_inputs: None, state: State,
+                mask: Optional[torch.Tensor] = None,
+                use_windowing: bool = False
+                ) -> Tuple[torch.Tensor, State]:
+        """One step: (context (B, D), new state); ``processed_inputs`` and
+        ``use_windowing`` are not read."""
+        g, b, k = torch.chunk(self.N_a(query), 3, dim=-1)
+        g = torch.softmax(g, dim=-1) + 1e-7
+        sigma = F.softplus(b) + 1e-7
+        mu = state["mu_prev"] + F.softplus(k)
+        j = torch.arange(inputs.shape[1] + 1, dtype=torch.float32,
+                         device=query.device)
+        cdf = (g[..., None] * torch.sigmoid(
+            (j - mu[..., None]) / sigma[..., None])).sum(dim=1)
+        alpha = torch.clamp(cdf[:, 1:] - cdf[:, :-1], min=1e-8)
+        if mask is not None:
+            alpha = alpha.masked_fill(~mask, 0.0)
+        context = torch.einsum("bt,btd->bd", alpha.to(inputs.dtype), inputs)
+        return context, {"mu_prev": mu, "attention_weights": alpha}
+
+
 def init_attn(attn_type: str, *, query_dim: int, embedding_dim: int,
-              attn_dim: int = 128, location_attention: bool = True,
+              attn_dim: int = 128, attn_K: int = 5,
+              location_attention: bool = True,
               use_forward_attn: bool = False,
               use_transition_agent: bool = False,
               forward_attn_mask: bool = False, norm: str = "softmax",
-              windowing: bool = False) -> LocationSensitiveAttention:
-    """Attention factory (≙ init_attn); "graves" is not ported yet."""
+              windowing: bool = False, use_v_bias: bool = False
+              ) -> nn.Module:
+    """Attention factory (≙ init_attn): "graves" (``attn_K`` mixture
+    components) or "original" (location-sensitive)."""
+    if attn_type == "graves":
+        return GravesAttention(query_dim, attn_K)
     if attn_type != "original":
-        raise NotImplementedError(f"{attn_type} attention is not ported yet")
+        raise ValueError(f"unknown attention type: {attn_type}")
     return LocationSensitiveAttention(
         query_dim, embedding_dim, attn_dim=attn_dim,
         use_location=location_attention, use_forward_attn=use_forward_attn,
         use_transition_agent=use_transition_agent,
-        forward_attn_mask=forward_attn_mask, norm=norm, windowing=windowing)
+        forward_attn_mask=forward_attn_mask, norm=norm, windowing=windowing,
+        use_v_bias=use_v_bias)

@@ -61,13 +61,15 @@ class PackedGlowEncoder(NamedTuple):
 
 def supports_fused_encoder(enc) -> bool:
     """The configuration B3 computes: the port's ``GlowTTSEncoder``
-    (transformer, prenet, mean_only) of one speaker (no speaker channels
+    (transformer, prenet, mean_only; the gated-conv and time-depth-separable
+    encoders are refused) of one speaker (no speaker channels
     into the duration predictor: B3 takes no conditioning, as tts_tpu's
     Pallas encoder) with window 4 in every layer, and LayerNorm widths
     (hidden, duration filter) of at most 256, which one block of the kernel
     holds. Depends on the configuration only."""
     from tts_tpu_torch.models.glow.encoder import GlowTTSEncoder
-    if not isinstance(enc, GlowTTSEncoder) or enc.c_in_channels:
+    if (not isinstance(enc, GlowTTSEncoder) or enc.c_in_channels
+            or enc.encoder_type != "transformer"):
         return False
     tr = enc.encoder
     return (all(a.window == REL_W for a in tr.attn_layers)

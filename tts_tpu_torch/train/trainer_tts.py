@@ -1,5 +1,5 @@
-"""Tacotron2 trainer (≙ tts_tpu/train/trainer_tts.py and the step of
-tts_tpu/train/state.py, on one device).
+"""Tacotron2 and Tacotron (v1) trainer (≙ tts_tpu/train/trainer_tts.py and
+the step of tts_tpu/train/state.py, on one device).
 
 Per epoch: the reduction factor r and the batch size from the
 gradual-training schedule (``Tacotron2.set_r``; a dataset per split and r),
@@ -11,9 +11,19 @@ kernel has no backward). After each epoch, ``eval_epoch`` on the held-out
 split (dropout off, BatchNorm's running statistics, no grad), the best
 model by ``avg_postnet_loss``, and from ``test_delay_epochs`` on
 ``test_run``: the test sentences through ``infer/synthesis.py``, so B7 and
-B8 run on the card, with Griffin-Lim audio logged to TensorBoard.
-``test_run`` draws no figures (tts_tpu's spectrogram and alignment plots
-need matplotlib, which the port does not depend on).
+B8 run on the card, with Griffin-Lim audio logged to TensorBoard. As in
+tts_tpu, a sentence that raises is reported (`` [!] test sentence
+failed: ...``) and the next one runs: a bad sentence does not end
+training. ``test_run`` draws no figures (tts_tpu's spectrogram and
+alignment plots need matplotlib, which the port does not depend on).
+
+Tacotron v1 (``model`` "tacotron") trains the same way, as tts_tpu's
+trainer does: gradual r, eval epochs, checkpoints; no DDC or backward
+decoder (v1 has neither). Its batches carry the linear spectrogram
+(``compute_linear_spec``) and its post-net loss is against it
+(``use_linear``); its test sentences are Griffin-Lim of the linear output
+(``infer/synthesis.py::inv_spectrogram``). No kernel runs in its step or its
+test sentences: B7 and B8 compute Tacotron2 only.
 
 With ``use_speaker_embedding`` the model is multi-speaker as in tts_tpu:
 one learned embedding per speaker of the training split, or with
@@ -30,9 +40,9 @@ gradients. BatchNorm's running statistics stay float32. Weights start from
 ``config["seed"]`` (54321 by default); every dropout mask comes from the
 trainer's ``torch.Generator``. ``use_data_parallel`` on one device is a
 world of one: the single-device step runs. More devices are not ported
-yet. In mixed precision the external d-vectors stay float32, as in
-tts_tpu, so the encoder's output they join is float32 and the layers
-that read it compute in float32 (``forward``).
+yet. In mixed precision the layers from the encoder's RNN on compute in
+float32 on the bfloat16-rounded weights, as flax's float32 RNN carries
+make tts_tpu's do (``mixed_params``); external d-vectors stay float32.
 """
 
 from __future__ import annotations
@@ -53,7 +63,6 @@ from tts_tpu_torch.data.formatters import get_speakers
 from tts_tpu_torch.infer.synthesis import synthesis
 from tts_tpu_torch.losses.tts_losses import tacotron_loss
 from tts_tpu_torch.models.registry import setup_model
-from tts_tpu_torch.models.tacotron2 import Tacotron2
 from tts_tpu_torch.text import num_symbols
 from tts_tpu_torch.train import checkpoint as ckpt_io
 from tts_tpu_torch.train.gan import cast_params
@@ -71,7 +80,7 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
     """A collated numpy batch -> tensors on ``device``; the mel stays
     time-major (B, T, n_mels), as the model's outputs; ``speaker_ids`` and
     ``speaker_embeddings`` where the batch has them."""
-    keys = ("text_lengths", "mel", "mel_lengths", "stop_targets",
+    keys = ("text_lengths", "mel", "mel_lengths", "stop_targets", "linear",
             "speaker_ids", "speaker_embeddings")
     out = {key: torch.from_numpy(batch[key]).to(device)
            for key in keys if key in batch}
@@ -79,30 +88,37 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
     return out
 
 
-def mixed_params(model: Tacotron2, dtype: torch.dtype,
-                 float32_decoders: bool) -> Dict[str, torch.Tensor]:
+# What tts_tpu computes in float32 under mixed precision: flax's RNN
+# carries are float32, so its RNNs (the encoders', GST's) promote their
+# bfloat16 parameters, and every layer that reads their outputs does too.
+FLOAT32_RNNS = ("encoder.lstm.", "encoder.cbhg.cbhg.gru.",
+                "gst_layer.encoder.recurrence.", "gst_layer.style_token_layer.")
+FLOAT32_PARTS = ("decoder", "coarse_decoder", "backward_decoder", "postnet",
+                 "last_linear")
+
+
+def mixed_params(model: torch.nn.Module, dtype: torch.dtype
+                 ) -> Dict[str, torch.Tensor]:
     """The parameters for a forward in ``dtype``: copies in ``dtype`` (≙
-    tts_tpu's ``_cast_floats``). With ``float32_decoders`` the decoders but
-    their prenets (which read the ``dtype`` mel) and the postnet take
-    float32 copies of the ``dtype``-rounded values: what tts_tpu's layers
-    compute when a float32 input promotes their bfloat16 parameters."""
+    tts_tpu's ``_cast_floats``), but float32 copies of the ``dtype``-rounded
+    values where tts_tpu's layers meet a float32 input: the encoder's RNN
+    and GST's GRU and style tokens, then the decoders but their prenets
+    (which read the ``dtype`` mel), the postnet and v1's linear head."""
     params = cast_params(model, dtype, frozen=False)
-    if float32_decoders:
-        for name, p in params.items():
-            if (name.split(".")[0] in ("decoder", "coarse_decoder",
-                                       "backward_decoder", "postnet")
-                    and ".prenet." not in name):
-                params[name] = p.float()
+    for name, p in params.items():
+        if (name.startswith(FLOAT32_RNNS)
+                or (name.split(".")[0] in FLOAT32_PARTS
+                    and ".prenet." not in name)):
+            params[name] = p.float()
     return params
 
 
-def forward(model: Tacotron2, batch: Batch,
+def forward(model: torch.nn.Module, batch: Batch,
             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The teacher-forced outputs in float32; with ``dtype`` bfloat16, from
-    bfloat16 copies of the parameters on a bfloat16 mel. External
-    d-vectors stay float32 there, as in tts_tpu: the encoder's output they
-    are concatenated to becomes float32, and from it on the decoders and
-    the postnet compute in float32 (``mixed_params``)."""
+    the parameters of ``mixed_params`` on a bfloat16 mel: the convolutions
+    before the encoder's RNN in bfloat16, what follows it in float32, as in
+    tts_tpu. External d-vectors stay float32."""
     args = (batch["text"], batch["text_lengths"], batch["mel"],
             batch["mel_lengths"])
     kwargs = {key: batch[key] for key in ("speaker_ids",
@@ -110,14 +126,12 @@ def forward(model: Tacotron2, batch: Batch,
               if key in batch}
     if dtype == torch.float32:
         return model(*args, **kwargs)
-    params = mixed_params(model, dtype,
-                          float32_decoders="speaker_embeddings" in kwargs)
-    out = functional_call(model, params,
+    out = functional_call(model, mixed_params(model, dtype),
                           (*args[:2], args[2].to(dtype), args[3]), kwargs)
     return {key: value.float() for key, value in out.items()}
 
 
-def train_step(model: Tacotron2, optimizer: RAdamW, batch: Batch,
+def train_step(model: torch.nn.Module, optimizer: RAdamW, batch: Batch,
                loss_kwargs: Dict[str, Any],
                dtype: torch.dtype = torch.float32) -> Dict[str, float]:
     """Forward, loss, backward and one optimizer step on a device batch, in
@@ -141,9 +155,9 @@ class TTSTrainer:
     def __init__(self, config: Dict[str, Any], output_path: str,
                  device: DeviceLike = None):
         check_config_tts(config)
-        if config["model"].lower() != "tacotron2":
-            raise NotImplementedError(f"training {config['model']} with this "
-                                      f"trainer is not ported yet")
+        if config["model"].lower() not in ("tacotron2", "tacotron"):
+            raise ValueError(f"this trainer trains Tacotron and Tacotron2, "
+                             f"not {config['model']}")
         self.device = resolve_device(device)
         if config.get("use_data_parallel", False):
             n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
@@ -205,7 +219,8 @@ class TTSTrainer:
             decoder_diff_spec_alpha=config.get("decoder_diff_spec_alpha",
                                                0.0),
             postnet_diff_spec_alpha=config.get("postnet_diff_spec_alpha",
-                                               0.0))
+                                               0.0),
+            use_linear=config["model"].lower() == "tacotron")
         self.dtype = (torch.bfloat16 if config.get("mixed_precision", False)
                       else torch.float32)
 
@@ -226,6 +241,7 @@ class TTSTrainer:
                 self.ap, self.meta_eval if is_eval else self.meta_train,
                 outputs_per_step=r,
                 text_cleaner=c.get("text_cleaner", "english_cleaners"),
+                compute_linear_spec=c["model"].lower() == "tacotron",
                 min_seq_len=0 if is_eval else c.get("min_seq_len", 0),
                 max_seq_len=(float("inf") if is_eval
                              else c.get("max_seq_len", float("inf"))),
@@ -297,8 +313,9 @@ class TTSTrainer:
 
     def test_run(self) -> Dict[str, np.ndarray]:
         """The test sentences (the config's, or tts_tpu's two) synthesized
-        at the current r and turned to audio by Griffin-Lim. A model with
-        speakers or GST gets none (see the module's docstring)."""
+        at the current r and turned to audio by Griffin-Lim; a sentence
+        that raises is reported and skipped. A model with speakers or GST
+        gets none (see the module's docstring)."""
         self.model.eval()
         if self.model.num_speakers > 1 or self.model.use_gst:
             print(" [!] test sentences skipped: the model needs a speaker "
@@ -308,8 +325,12 @@ class TTSTrainer:
                      or self.DEFAULT_TEST_SENTENCES)
         audios = {}
         for i, sentence in enumerate(sentences):
-            result = synthesis(self.model, sentence, self.c, self.device,
-                               ap=self.ap, use_griffin_lim=True)
+            try:
+                result = synthesis(self.model, sentence, self.c, self.device,
+                                   ap=self.ap, use_griffin_lim=True)
+            except Exception as e:  # a bad sentence must not end training
+                print(f" [!] test sentence failed: {e}")
+                continue
             audios[f"test_{i}"] = result["wav"]
         self.tb.tb_eval_audios(self.global_step, audios, self.ap.sample_rate)
         return audios
