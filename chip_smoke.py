@@ -226,7 +226,39 @@ Phases, in order; any failure exits non-zero with its traceback:
    launched), and the mel on the card against the CPU (noise 0) within
    1e-4 of its largest magnitude.
 
-Each of phases 22-25 prints its seconds (``phase_s``).
+26. wavernn: configs/multiband_melgan.json's audio with generator_model
+   "wavernn" at fatchord's width (rnn and fc 512, compute and res-out 128,
+   10 res blocks, pad 2, upsample 4-8-8 = hop 256, 10 bits), seeded,
+   behind phase 3's Glow-TTS: 3 requests of different lengths over HTTP
+   and one through the CLI, each WAV finite, non-silent and n * hop
+   samples long, B3 38 launches a sentence, B1/B2 none; a WaveRNN whose
+   upsampling is not the hop refused at load (tts_tpu's check); on the
+   sampled sequence of the shortest request, the teacher-forced logits on
+   the card against the CPU (1e-4 of the largest) and the CPU's logits
+   redrawn at the same uniforms giving the card's ids, but where a
+   uniform lies within 1e-5 of a class boundary (counted); one request
+   through a mold-mode WaveRNN (10 mixtures). Prints each request's ms
+   split into Glow and WaveRNN, us a sample, the RTF, the sample loop
+   profiled (kernels a sample, device busy ms, idle share) and the bytes
+   a sample reads with the bound they give.
+27. eval_model: bin/eval_model on the card on seeded full-width
+   glow_tts_ljspeech.json and tacotron2_ljspeech.json checkpoints over a
+   16-utterance synthetic corpus (all held out, 2 batches of 8): B4 one
+   launch a batch, B7 1 + the text bucket a batch, the metrics within
+   1e-4 relative of the same run on the CPU; seconds an item.
+28. tools: bin/compute_statistics on that corpus against the same
+   statistics computed two-pass in float64 (means within 1e-5, standard
+   deviations within 1e-3 relative: the script's one float32 pass is
+   tts_tpu's); bin/convert_torch_checkpoint on legacy .pth.tar files of
+   phase 3's Multiband-MelGAN and phase 26's WaveRNN, each served audio
+   within 1e-5 of the original checkpoint's.
+29. export: phase 3's Multiband-MelGAN (2 x 248 frames) and Glow-TTS (96
+   symbols, noise 0, 1,024 frames) exported on the CPU through
+   bin/export_model, loaded and run on the card against the served kernel
+   path (B1/B2, B3) within 1e-4 of the largest magnitude; the export
+   seconds.
+
+Each of phases 22-29 prints its seconds (``phase_s``).
 
 Phases 3 and 4 run Glow's encoder through B3 too: phase 3 asserts its
 launches (one call per sentence), phase 4 prints its share of glow_ms.
@@ -3564,6 +3596,466 @@ def glow_encoders_phase(dev, root: str, card: str) -> None:
         assert err <= TOL * scale, (err, scale)
 
 
+# ---------------------------------------------------------------------------
+# phases 26-29: WaveRNN behind Glow-TTS, eval_model, statistics and the
+# converter, torch.export
+# ---------------------------------------------------------------------------
+
+# 18, 30 and 42 mel frames: buckets of 32, 32 and 64 frames
+WAVERNN_TEXTS = ["Hi.", "Yes.", "Hello."]
+WAVERNN_PROFILED_FRAMES = 4     # 1,024 samples
+EVAL_UTTERANCES = 16        # all held out: two batches of 8
+
+
+def build_wavernn(root: str, mode=10, factors=(4, 8, 8),
+                  name: str = "wavernn") -> dict:
+    """configs/multiband_melgan.json's audio with generator_model "wavernn"
+    at fatchord's full width (rnn and fc 512, compute and res-out 128, 10
+    res blocks, pad 2, upsample ``factors``; ``mode`` 10 bits or "mold"
+    with 10 mixtures), seeded, with the GRUs' r and z hidden-side biases at
+    zero (one bias per gate, as weights carried from tts_tpu have) and
+    seeded BatchNorm statistics: {"config", "checkpoint"} paths."""
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models.vocoder.registry import setup_generator
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    c = load_config(os.path.join(here, "configs", "multiband_melgan.json"))
+    c.update(generator_model="wavernn", mode=mode,
+             generator_model_params={"upsample_factors": list(factors)})
+    torch.manual_seed(SEED)
+    gen = setup_generator(c)
+    sd = gen.state_dict()
+    for key, value in sd.items():
+        if key.endswith("running_var"):
+            value.uniform_(0.5, 1.5)
+        elif key.endswith("running_mean"):
+            value.normal_(0.0, 0.1)
+        elif key.startswith("rnn") and "bias_hh" in key:
+            value[:2 * gen.rnn_dims] = 0
+    paths = {"config": os.path.join(root, f"{name}.json"),
+             "checkpoint": os.path.join(root, f"{name}.pt")}
+    with open(paths["config"], "w") as f:
+        json.dump(c, f)
+    torch.save({"model": sd}, paths["checkpoint"])
+    return paths
+
+
+def wavernn_bytes_per_sample(gen) -> int:
+    """What one step of ``WaveRNN.sample_loop`` reads (float32): I's
+    previous-sample column, both GRUs, fc1's and fc2's hidden-side columns,
+    fc3, and the step's rows of the projected conditioning (I, fc1, fc2)
+    and of the second aux group."""
+    R, F = gen.rnn_dims, gen.fc1.out_features
+    n = (R + sum(p.numel() for p in gen.rnn1.parameters())
+         + sum(p.numel() for p in gen.rnn2.parameters())
+         + F * R + F * F + gen.fc3.weight.numel() + gen.fc3.bias.numel()
+         + R + 2 * F + gen.aux_dims)
+    return 4 * n
+
+
+def vocoder_mel(synth, mel_norm: np.ndarray) -> torch.Tensor:
+    """The mel ``Synthesizer._vocode`` hands a WaveRNN: bucketed to 32
+    frames and edge-padded by its context frames, (1, M, T) on its
+    device."""
+    gen = synth.vocoder_model
+    n = mel_norm.shape[0]
+    nb = max(32, -(-n // 32) * 32)
+    mel = np.pad(mel_norm, ((gen.pad, nb - n + gen.pad), (0, 0)),
+                 mode="edge")
+    return torch.from_numpy(np.ascontiguousarray(mel.T, np.float32))[None] \
+        .to(synth.device)
+
+
+def wavernn_phase(dev, root: str, card: str) -> dict:
+    """Phase 26: Glow-TTS -> WaveRNN served over HTTP and the CLI. Returns
+    phase 3's model paths (``paths``), the WaveRNN's (``voc``), and the
+    first request's audio from its profiled sample loop (``reference``)."""
+    from tts_tpu_torch.bin.synthesize import main as synthesize
+    from tts_tpu_torch.audio.processor import read_wav
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.infer.synthesis import synthesis, text_to_seqvec
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.models.vocoder import wavernn as W
+    from tts_tpu_torch.models.vocoder.registry import setup_generator
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+
+    t_phase = time.perf_counter()
+    stages, clock = {}, [t_phase]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stages[name] = now - clock[0]
+        clock[0] = now
+
+    paths = build_models(root)
+    voc = build_wavernn(root)
+    synth = Synthesizer(paths["tts"], paths["tts_config"], voc["checkpoint"],
+                        voc["config"], device=dev)
+    gen = synth.vocoder_model
+    assert isinstance(gen, W.WaveRNN) and synth._packed is None
+    cfg = load_config(paths["tts_config"])
+    hop = synth.vocoder_ap.hop_length
+    assert gen.hop == hop == 256
+    frames = [-(-6 * len(text_to_seqvec(t, cfg)) // 2) * 2
+              for t in WAVERNN_TEXTS]
+    buckets = [max(32, -(-n // 32) * 32) for n in frames]
+    assert max(buckets) > 32, buckets
+    stage("models_s")
+
+    # three requests over HTTP; the vocoder's share of each timed inside
+    # the server
+    vocode_ms = []
+
+    def timed_vocode(mel_norm, vocode=synth._vocode):
+        t0 = time.perf_counter()
+        wav = vocode(mel_norm)
+        vocode_ms.append((time.perf_counter() - t0) * 1e3)
+        return wav
+
+    synth._vocode = timed_vocode
+    build.reset_launches()
+    served = served_wavs(synth, WAVERNN_TEXTS)
+    launches = dict(build.LAUNCHES)
+    del synth._vocode
+    assert launches.get(GEK.KERNEL, 0) == encoder_launches(
+        synth.model, WAVERNN_TEXTS), launches
+    for name in (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL):
+        assert launches.get(name, 0) == 0, (name, launches)
+    stage("http_s")
+    # Glow's share: the same mels again (tens of ms each)
+    requests, mels = [], []
+    for text, n, nb, (wav, ms), voc_ms in zip(WAVERNN_TEXTS, frames, buckets,
+                                              served, vocode_ms):
+        assert len(wav) == n * hop + 10000, (len(wav), n * hop)
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+        t0 = time.perf_counter()
+        mel = synthesis(synth.model, text, cfg, dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        mels.append(mel["postnet_outputs"])
+        assert mels[-1].shape[0] == n, (mels[-1].shape, n)
+        requests.append({
+            "text": text, "mel_frames": n, "bucket_frames": nb,
+            "samples_generated": nb * hop, "samples_served": len(wav),
+            "latency_ms": ms, "wavernn_ms": voc_ms,
+            "glow_ms": (time.perf_counter() - t0) * 1e3,
+            "us_per_sample": voc_ms * 1e3 / (nb * hop),
+            "rtf": ms / 1e3 / (n * hop / synth.ap.sample_rate)})
+    stage("glow_s")
+
+    # the CLI, one request
+    build.reset_launches()
+    path = synthesize([WAVERNN_TEXTS[0], paths["tts_config"], paths["tts"],
+                       os.path.join(root, "cli_wavernn"), "--vocoder_path",
+                       voc["checkpoint"], "--vocoder_config_path",
+                       voc["config"]])
+    cli_launches = dict(build.LAUNCHES)
+    wav, _ = read_wav(path)
+    assert len(wav) == frames[0] * hop + 10000
+    assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+    assert cli_launches.get(GEK.KERNEL, 0) == encoder_launches(
+        synth.model, WAVERNN_TEXTS[:1]), cli_launches
+    # the same request as the server's, through 16-bit WAV
+    assert np.abs(wav - served[0][0]).max() <= 1.0 / 32767, "CLI vs HTTP"
+    stage("cli_s")
+
+    # tts_tpu's hop check: upsampling of 128 under a hop of 256
+    bad = build_wavernn(root, factors=(4, 8, 4), name="wavernn_hop128")
+    try:
+        Synthesizer(paths["tts"], paths["tts_config"], bad["checkpoint"],
+                    bad["config"], device=dev)
+        raise AssertionError("a WaveRNN of hop 128 served under hop 256")
+    except ValueError as e:
+        assert "hop_length" in str(e), e
+    stage("hop_check_s")
+
+    # the first request's sample loop again, on the served mel with the
+    # served draws: it gives the served audio
+    mel_p = vocoder_mel(synth, mels[0])
+    T = (mel_p.shape[-1] - 2 * gen.pad) * hop
+    u = gen.draws(1, T, torch.Generator().manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = gen.sample_loop(mel_p, u)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    reference = gen.waveform(samples)[0].cpu().numpy()[:frames[0] * hop]
+    # in 16-bit codes: the WAV holds int(y * 32767), read back over 32768
+    served_codes = np.round(served[0][0][:len(reference)] * 32768.0)
+    served_err = int(np.abs(served_codes - (reference * 32767.0)
+                            .astype("<i2")).max())
+    assert served_err <= 1, ("served vs loop, codes apart", served_err)
+    stage("loop_s")
+    # its first frames profiled: tracing costs the host ~7 ms a sample
+    n_prof = WAVERNN_PROFILED_FRAMES * hop
+    prof = busy_summary(kernel_profile(lambda: gen.sample_loop(
+        mel_p[..., :WAVERNN_PROFILED_FRAMES + 2 * gen.pad], u[..., :n_prof])),
+        loop_ms * n_prof / T, top=8)
+    weight_bytes = wavernn_bytes_per_sample(gen)
+    loop = {"samples": T, "wall_ms": loop_ms,
+            "us_per_sample": loop_ms * 1e3 / T, "profiled_samples": n_prof,
+            "kernels_per_sample": prof["kernels_launched"] / n_prof,
+            "device_busy_us_per_sample":
+                prof["kernel_busy_ms_per_step"] * 1e3 / n_prof,
+            "device_idle_share": prof["device_idle_share"],
+            "top_kernels_us": prof["top_kernels_us"],
+            "weight_bytes_per_sample": weight_bytes,
+            "weight_bound_us_per_sample": weight_bytes / HBM_BYTES_PER_S
+            * 1e6, "served_vs_loop_codes_apart": served_err}
+    stage("profile_s")
+
+    # the card's samples against the CPU: teacher-forced logits on the same
+    # sampled sequence, and the same draws from the CPU's logits
+    x_in = gen.previous_samples(samples)
+    cpu = setup_generator(load_config(voc["config"]))
+    cpu.load_state_dict(torch.load(voc["checkpoint"], map_location="cpu",
+                                   weights_only=True)["model"])
+    cpu.eval()
+    with torch.no_grad():
+        logits_card = gen(x_in, mel_p).cpu()
+        logits_cpu = cpu(x_in.cpu(), mel_p.cpu())
+    err = float((logits_card - logits_cpu).abs().max())
+    scale = float(logits_cpu.abs().max())
+    assert err <= TOL * scale, (err, scale)
+    redrawn = W.draw_bits(logits_cpu, u[0].cpu())
+    differ = redrawn != samples.cpu()
+    near = W.boundary_distance(logits_cpu, u[0].cpu()) < 1e-5
+    assert not bool((differ & ~near).any()), int(differ.sum())
+    assert len(torch.unique(samples)) > 64
+    stage("card_vs_cpu_s")
+
+    # one mold request (10 mixtures)
+    mold = build_wavernn(root, mode="mold", name="wavernn_mold")
+    synth_mold = Synthesizer(paths["tts"], paths["tts_config"],
+                             mold["checkpoint"], mold["config"], device=dev)
+    assert synth_mold.vocoder_model.n_classes == 30
+    t0 = time.perf_counter()
+    wav = synth_mold.tts(WAVERNN_TEXTS[0])
+    mold_ms = (time.perf_counter() - t0) * 1e3
+    assert len(wav) == frames[0] * hop + 10000
+    assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-3
+    stage("mold_s")
+    log({"wavernn_serving": "glow_tts_ljspeech.json -> wavernn (bits 10)",
+         "requests": requests, "launches": launches,
+         "cli_launches": cli_launches, "sample_loop": loop,
+         "logits_card_vs_cpu_max_abs": err,
+         "logits_scale": scale, "ids_differing": int(differ.sum()),
+         "draws_within_1e-5_of_a_boundary": int(near.sum()),
+         "mold_request_ms": mold_ms, "stages_s": stages,
+         "phase_s": time.perf_counter() - t_phase, "card": card})
+    return {"paths": paths, "voc": voc,
+            "reference": (WAVERNN_TEXTS[0], reference)}
+
+
+def eval_model_phase(dev, root: str, card: str) -> dict:
+    """Phase 27: bin/eval_model on the card on seeded full-width Glow-TTS
+    and Tacotron2 checkpoints, against the CPU."""
+    from tts_tpu_torch.audio import AudioProcessor
+    from tts_tpu_torch.bin.eval_model import evaluate, main as eval_main
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.data import TTSDataset, load_meta_data
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.ops.cuda import bilstm as BLK
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import mas as MAS
+    from tts_tpu_torch.text import num_symbols
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    corpus = write_corpus(os.path.join(root, "eval_corpus"), EVAL_UTTERANCES)
+    out = {}
+    for name in ("glow_tts_ljspeech", "tacotron2_ljspeech"):
+        c = load_config(os.path.join(here, "configs", f"{name}.json"))
+        c["datasets"] = [{"name": "ljspeech", "path": corpus,
+                          "meta_file_train": "metadata.csv",
+                          "meta_file_val": "metadata.csv"}]
+        cfg_path = os.path.join(root, f"eval_{name}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(c, f)
+        torch.manual_seed(SEED)
+        model = setup_model(num_symbols(c["use_phonemes"]), 1, c)
+        ckpt = os.path.join(root, f"eval_{name}.pt")
+        torch.save({"model": model.state_dict()}, ckpt)
+        # what the batches hold: full batches of 8, texts padded to 32
+        items = load_meta_data(c["datasets"])[1][:EVAL_UTTERANCES]
+        ds = TTSDataset(AudioProcessor(**c.audio), items,
+                        outputs_per_step=getattr(model, "r", 1),
+                        text_cleaner=c.get("text_cleaner",
+                                           "english_cleaners"),
+                        use_phonemes=c["use_phonemes"])
+        text_buckets = [b["text"].shape[1] for b in ds.batches(8)]
+        build.reset_launches()
+        t0 = time.perf_counter()
+        got = eval_main(["--config_path", cfg_path, "--checkpoint", ckpt,
+                         "--num_items", str(EVAL_UTTERANCES)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        if name.startswith("glow"):
+            assert launches.get(MAS.KERNEL, 0) == len(text_buckets), launches
+            assert launches.get(BLK.KERNEL, 0) == 0, launches
+        else:
+            want = sum(1 + t for t in text_buckets)
+            assert launches.get(BLK.KERNEL, 0) == want, (launches, want)
+            assert launches.get(MAS.KERNEL, 0) == 0, launches
+        cpu = evaluate(cfg_path, ckpt, num_items=EVAL_UTTERANCES,
+                       device="cpu")
+        assert got["n_items"] == cpu["n_items"] == EVAL_UTTERANCES
+        apart = {}
+        for key, value in cpu.items():
+            if isinstance(value, float):
+                apart[key] = abs(got[key] - value) / max(abs(value), 1e-12)
+                assert apart[key] <= 1e-4, (key, got[key], value)
+        out[name] = launches
+        log({"eval_model": name, "metrics": got, "launches": launches,
+             "text_buckets": text_buckets, "seconds": seconds,
+             "s_per_item": seconds / EVAL_UTTERANCES,
+             "card_vs_cpu_relative": apart, "card": card})
+    log({"eval_model_phase_s": time.perf_counter() - t_phase})
+    return out
+
+
+def tools_phase(dev, root: str, card: str, wavernn: dict) -> None:
+    """Phase 28: bin/compute_statistics on the eval corpus, and
+    bin/convert_torch_checkpoint on .pth.tar files of phase 3's
+    Multiband-MelGAN and phase 26's WaveRNN (``wavernn``, what
+    ``wavernn_phase`` returns), served against the originals: the
+    Multiband-MelGAN's request served from both checkpoints, the WaveRNN's
+    against phase 26's audio of the same request."""
+    from tts_tpu_torch.audio import AudioProcessor
+    from tts_tpu_torch.bin.compute_statistics import main as stats_main
+    from tts_tpu_torch.bin.convert_torch_checkpoint import main as convert
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.data import load_meta_data
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+
+    t_phase = time.perf_counter()
+    cfg_path = os.path.join(root, "eval_glow_tts_ljspeech.json")
+    c = load_config(cfg_path)
+    out = os.path.join(root, "scale_stats.npy")
+    t0 = time.perf_counter()
+    stats = stats_main(["--config_path", cfg_path, "--out_path", out])
+    stats_s = time.perf_counter() - t0
+    # the same statistics from every frame at once, two-pass in float64:
+    # the script's one pass of float32 sums (tts_tpu's) loses ~1e-4 of the
+    # standard deviation to cancellation, its mean far less
+    ap = AudioProcessor(**dict(c.audio, signal_norm=False, stats_path=None))
+    items = load_meta_data(c["datasets"], eval_split_size=0.0)[0]
+    mels, lins = [], []
+    for _, wav_path, _ in items:
+        wav = ap.load_wav(wav_path)
+        mels.append(ap.melspectrogram(wav))
+        lins.append(ap.spectrogram(wav))
+    stats_apart = {}
+    for key, frames in (("mel", np.concatenate(mels)),
+                        ("linear", np.concatenate(lins))):
+        frames = frames.astype(np.float64)
+        for stat, want, tol in (("mean", frames.mean(0), 1e-5),
+                                ("std", frames.std(0), 1e-3)):
+            got = stats[f"{key}_{stat}"].astype(np.float64)
+            rel = float((np.abs(got - want) / np.abs(want).clip(1e-6)).max())
+            stats_apart[f"{key}_{stat}"] = rel
+            assert rel <= tol, (key, stat, rel)
+    AudioProcessor(**dict(c.audio, stats_path=out))
+
+    paths, voc = wavernn["paths"], wavernn["voc"]
+    wavernn_text, reference = wavernn["reference"]
+    converted = []
+    for model_type, ckpt, voc_cfg, text in (
+            ("multiband_melgan", paths["voc"], paths["vocoder_config"],
+             "Hello world!"),
+            ("wavernn", voc["checkpoint"], voc["config"], wavernn_text)):
+        sd = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+        src = os.path.join(root, f"{model_type}.pth.tar")
+        torch.save({"model": sd, "step": 1}, src,
+                   _use_new_zipfile_serialization=False)
+        t0 = time.perf_counter()
+        new = convert(["--model_type", model_type, "--torch_checkpoint", src,
+                       "--out_dir", os.path.join(root, "converted"),
+                       "--config_path", voc_cfg])
+        convert_s = time.perf_counter() - t0
+        got = Synthesizer(paths["tts"], paths["tts_config"], new, voc_cfg,
+                          device=dev).tts(text)
+        if model_type == "wavernn":
+            # the original checkpoint's audio of this request: phase 26's
+            assert len(got) == len(reference) + 10000, len(got)
+            want, got = reference, got[:len(reference)]
+        else:
+            want = Synthesizer(paths["tts"], paths["tts_config"], ckpt,
+                               voc_cfg, device=dev).tts(text)
+        err = float(np.abs(want - got).max())
+        assert len(want) == len(got) and err <= 1e-5, err
+        converted.append({"model_type": model_type, "convert_s": convert_s,
+                          "served_max_abs_diff": err,
+                          "samples": len(want)})
+    log({"compute_statistics_s": stats_s, "stats_items": len(items),
+         "stats_vs_float64_two_pass_relative": stats_apart,
+         "converted": converted, "phase_s": time.perf_counter() - t_phase,
+         "card": card})
+
+
+def export_phase(dev, root: str, card: str, paths: dict) -> None:
+    """Phase 29: phase 3's full-width Multiband-MelGAN and Glow-TTS
+    (``paths`` from ``build_models``) exported on the CPU through
+    bin/export_model, loaded and run on the card against the served kernel
+    path (B1/B2, B3), whose launches are asserted."""
+    from tts_tpu_torch.bin.export_model import main as export_main
+    from tts_tpu_torch.export import load_program, max_abs_diff, run_program
+    from tts_tpu_torch.infer.synthesizer import Synthesizer
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+
+    t_phase = time.perf_counter()
+    synth = Synthesizer(paths["tts"], paths["tts_config"], paths["voc"],
+                        paths["vocoder_config"], device=dev)
+    results = []
+    for kind, ckpt, cfg, flags, kernels in (
+            ("vocoder", paths["voc"], paths["vocoder_config"],
+             ["--frames", str(MEL_FRAMES), "--batch", "2"],
+             (M.PROJ_IN, M.UPSAMPLE, R.KERNEL, M.TAIL)),
+            ("tts", paths["tts"], paths["tts_config"],
+             ["--frames", "96", "--y_max_length", "1024"], (GEK.KERNEL,))):
+        pt2 = os.path.join(root, f"{kind}.pt2")
+        exported = export_main(["--config_path", cfg, "--checkpoint_path",
+                                ckpt, "--output_path", pt2, "--kind", kind]
+                               + flags)
+        program = load_program(pt2)
+        g = torch.Generator().manual_seed(SEED)
+        build.reset_launches()
+        if kind == "vocoder":
+            args = (torch.randn(2, MEL_FRAMES, 80, generator=g),)
+            with torch.no_grad():
+                want = M.megakernel_inference(synth.vocoder_model,
+                                              synth._packed,
+                                              args[0].to(dev))[..., 0]
+        else:
+            args = (torch.randint(1, 60, (1, 96), generator=g),
+                    torch.tensor([80], dtype=torch.int32))
+            want = synth.model.inference(
+                args[0].to(dev), args[1].to(dev), noise_scale=0.0,
+                y_max_length=1024)["model_outputs"]
+        launches = dict(build.LAUNCHES)
+        for name in kernels:
+            assert launches.get(name, 0) > 0, (kind, name, launches)
+        got = run_program(program, *args, device=dev)
+        assert got.device.type == dev.type, (kind, got.device)
+        err = max_abs_diff(got, want)
+        scale = float(want.abs().max())
+        assert got.shape == want.shape, (got.shape, want.shape)
+        assert err <= TOL * scale, (kind, err, scale)
+        results.append({"kind": kind, "export_s": exported["export_s"],
+                        "pt2_bytes": os.path.getsize(pt2),
+                        "ran_on": str(got.device),
+                        "kernel_path_launches": launches,
+                        "vs_kernel_path_max_abs": err, "scale": scale})
+    log({"export": results, "phase_s": time.perf_counter() - t_phase,
+         "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3622,6 +4114,11 @@ def main() -> int:
         graves_phase(dev, root, card)
         streaming_phase(dev, root, card, v1)
         glow_encoders_phase(dev, root, card)
+    with tempfile.TemporaryDirectory() as root:
+        wavernn = wavernn_phase(dev, root, card)
+        eval_model_phase(dev, root, card)
+        tools_phase(dev, root, card, wavernn)
+        export_phase(dev, root, card, wavernn["paths"])
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",

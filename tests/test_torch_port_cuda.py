@@ -1119,3 +1119,173 @@ def test_glow_encoders_refuse_b3_on_the_card(cuda, encoder_type):
     for name, a in dev.named_buffers():
         if ".running_" in name:
             _close(a, stats[name])
+
+
+def _small_wavernn(mode="bits"):
+    """WaveRNN at rnn and fc 64, 2 res blocks, upsample (4, 4), 9 bits or
+    4 mixtures, seeded, with seeded BatchNorm statistics (eval mode)."""
+    from tts_tpu_torch.models.vocoder.wavernn import WaveRNN
+    torch.manual_seed(0)
+    gen = WaveRNN(bits=9, rnn_dims=64, fc_dims=64, compute_dims=32,
+                  res_out_dims=32, res_blocks=2, upsample_factors=(4, 4),
+                  mode=mode, nr_mix=4)
+    for name, buf in gen.named_buffers():
+        if name.endswith("running_var"):
+            buf.uniform_(0.5, 1.5)
+        elif name.endswith("running_mean"):
+            buf.normal_(0.0, 0.1)
+    return gen.eval()
+
+
+@pytest.mark.cuda
+def test_wavernn_generate_makes_no_host_sync_per_sample(cuda):
+    """``generate`` on the card: the host's waits on the card and the
+    copies between host and card of one call (torch.profiler's
+    synchronization events and its HtoD / DtoH memcpy activity; a
+    device-to-device copy makes the host wait for nothing) do not grow
+    with the number of samples."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = _small_wavernn().to(cuda)
+    counts = {}
+    for frames in (4, 12):
+        mel = torch.randn(1, 80, frames + 2 * gen.pad, device=cuda)
+        gen.generate(mel, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wav = gen.generate(mel, torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+        assert wav.shape == (1, frames * gen.hop) and wav.is_cuda
+        counts[frames] = {
+            e.key: e.count for e in prof.key_averages()
+            if e.key.startswith(("Memcpy HtoD", "Memcpy DtoH",
+                                 "cudaStreamSynchronize",
+                                 "cudaDeviceSynchronize",
+                                 "cudaEventSynchronize"))}
+    assert counts[4] == counts[12], counts
+    assert sum(counts[4].values()) <= 4, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bits", "mold"])
+def test_wavernn_card_samples_against_the_cpu(cuda, mode):
+    """The samples drawn on the card, fed back teacher-forced: the logits
+    on the card and on the CPU agree (1e-4 of the largest), and the CPU's
+    logits at the same uniforms draw the card's samples, except where a
+    uniform lies within 1e-5 of a class boundary."""
+    from tts_tpu_torch.models.vocoder import wavernn as W
+    cpu = _small_wavernn(mode)
+    gen = _small_wavernn(mode).to(cuda)
+    mel = torch.randn(1, 80, 20 + 2 * gen.pad,
+                      generator=torch.Generator().manual_seed(1))
+    T = 20 * gen.hop
+    u = gen.draws(1, T, torch.Generator().manual_seed(0), cuda)
+    samples = gen.sample_loop(mel.to(cuda), u)
+    x_in = gen.previous_samples(samples)
+    with torch.no_grad():
+        got = gen(x_in, mel.to(cuda)).cpu()
+        want = cpu(x_in.cpu(), mel)
+    _close(got, want)
+    u, samples = u.cpu(), samples.cpu()
+    if mode == "bits":
+        differ = W.draw_bits(want, u[0]) != samples
+        near = W.boundary_distance(want, u[0]) < 1e-5
+    else:
+        differ = (W.draw_mold(want, u[0], u[1]) - samples).abs() > 1e-4
+        near = W.boundary_distance(want[..., :4], u[0]) < 1e-5
+    assert not bool((differ & ~near).any()), int(differ.sum())
+
+
+@pytest.mark.cuda
+def test_exported_programs_match_the_kernel_path(cuda, tmp_path):
+    """A Multiband-MelGAN and a small Glow-TTS exported on the CPU
+    (``export/deploy.py``), loaded and run on the card: the vocoder against
+    the megakernel chain (B1/B2), Glow-TTS against its inference through
+    B3, each within 1e-4 of the largest magnitude."""
+    from tts_tpu_torch.bin.export_model import TTSProgram, VocoderProgram
+    from tts_tpu_torch.export import (export_program, load_program,
+                                      run_program)
+    from tts_tpu_torch.models.glow_tts import GlowTTS
+    from tts_tpu_torch.models.weight_norm import remove_weight_norm
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    torch.manual_seed(0)
+    gen = MultibandMelganGenerator(base_channels=384, num_res_blocks=4,
+                                   use_weight_norm=False).eval()
+    mel = torch.randn(2, 37, 80)
+    export_program(VocoderProgram(gen), (mel,), str(tmp_path / "voc.pt2"))
+    got = run_program(load_program(str(tmp_path / "voc.pt2")), mel,
+                      device=cuda)
+    want = M.megakernel_inference(
+        gen, M.pack_generator_params(gen, gen.state_dict(), cuda),
+        mel.to(cuda))[..., 0]
+    _close(got, want)
+
+    kw = dict(num_chars=60, hidden_channels_enc=32, hidden_channels_dec=32,
+              filter_channels=64, filter_channels_dp=48, num_layers_enc=2,
+              num_flow_blocks_dec=2, num_block_layers=2)
+    cpu = GlowTTS(**kw).eval()
+    with torch.no_grad():     # pin the durations (ceil flips on an ulp)
+        cpu.encoder.duration_predictor.proj.weight.zero_()
+        cpu.encoder.duration_predictor.proj.bias.fill_(1.5)
+    card = GlowTTS(**kw)
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda).eval().store_inverse()
+    remove_weight_norm(cpu).store_inverse()
+    text = torch.randint(1, 60, (1, 21), generator=torch.Generator()
+                         .manual_seed(4))
+    lengths = torch.tensor([17], dtype=torch.int32)
+    export_program(TTSProgram(cpu, 96), (text, lengths),
+                   str(tmp_path / "glow.pt2"))
+    got = run_program(load_program(str(tmp_path / "glow.pt2")), text,
+                      lengths, device=cuda)
+    before = build.LAUNCHES[GEK.KERNEL]
+    want = card.inference(text.to(cuda), lengths.to(cuda), noise_scale=0.0,
+                          y_max_length=96)["model_outputs"]
+    assert build.LAUNCHES[GEK.KERNEL] > before
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_eval_model_runs_b4_and_b7_on_the_card(cuda, tmp_path):
+    """``bin/eval_model`` on the card: Glow-TTS's alignment is one MAS
+    launch a batch, Tacotron2's encoder 1 + the text bucket BiLSTM launches
+    a batch; the metrics equal the CPU's within 1e-4 relative."""
+    import json
+    import os
+
+    from chip_smoke import write_corpus
+    from tts_tpu_torch.bin.eval_model import evaluate
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.text import num_symbols
+    corpus = write_corpus(str(tmp_path / "lj"), 8)
+    for name, small in (
+            ("glow_tts_ljspeech", dict(hidden_channels_encoder=32,
+                                       hidden_channels_decoder=32)),
+            ("tacotron2_ljspeech", dict(encoder_dim=64, embedding_dim=64,
+                                        attn_dim=32))):
+        c = load_config(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", f"{name}.json"))
+        c.update(small)
+        c["datasets"] = [{"name": "ljspeech", "path": corpus,
+                          "meta_file_train": "metadata.csv",
+                          "meta_file_val": "metadata.csv"}]
+        cfg = tmp_path / f"{name}.json"
+        cfg.write_text(json.dumps(c))
+        torch.manual_seed(0)
+        model = setup_model(num_symbols(c["use_phonemes"]), 1, c)
+        ckpt = tmp_path / f"{name}.pt"
+        torch.save({"model": model.state_dict()}, ckpt)
+        build.reset_launches()
+        got = evaluate(str(cfg), str(ckpt), num_items=8, device=cuda)
+        launches = dict(build.LAUNCHES)
+        want = evaluate(str(cfg), str(ckpt), num_items=8, device="cpu")
+        if name.startswith("glow"):
+            assert launches == {MAS.KERNEL: 1}, launches
+        else:
+            assert set(launches) == {BLK.KERNEL}, launches
+            assert launches[BLK.KERNEL] > 1 and launches[BLK.KERNEL] % 32 == 1
+        for key, value in want.items():
+            if isinstance(value, float):
+                assert abs(got[key] - value) <= 1e-4 * max(abs(value), 1e-6), \
+                    (key, got[key], value)

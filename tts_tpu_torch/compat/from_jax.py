@@ -25,7 +25,8 @@ the zero biases tts_tpu leaves out, so it maps params only, and so do
 ``tacotron_state_dict_from_jax`` (Tacotron v1's GRUs),
 ``gst_state_dict_from_jax`` (its GRU; the input features permuted) and
 ``speaker_encoder_state_dict_from_jax`` (the speaker encoder's LSTMs;
-``speaker_loss_state_dict_from_jax`` its loss's ``w`` and ``b``). The other
+``speaker_loss_state_dict_from_jax`` its loss's ``w`` and ``b``) and
+``wavernn_state_dict_from_jax`` (WaveRNN's GRUs). The other
 direction, port -> tts_tpu, is ``tts_tpu/compat/torch_port.py`` in the JAX
 package. ``state_dict_from_tts_tpu`` picks the converter for a whole
 tts_tpu checkpoint (``train/checkpoint.py::load_tts_tpu_checkpoint``) from
@@ -691,11 +692,53 @@ def speaker_loss_state_dict_from_jax(params: Tree
             for k in ("w", "b")}
 
 
+# ---------------------------------------------------------------------------
+# WaveRNN
+# ---------------------------------------------------------------------------
+
+def wavernn_state_dict_from_jax(params: Tree, batch_stats: Tree
+                                ) -> Dict[str, torch.Tensor]:
+    """``tts_tpu`` WaveRNN ``params`` and ``batch_stats`` -> the port's
+    ``WaveRNN`` state dict in fatchord's names: the MelResNet's convs and
+    BatchNorms (``upsample.resnet.*``, with ``num_batches_tracked``), each
+    (k, 1, 1) smoothing filter as ``upsample.up_layers.{2i+1}.weight``
+    (1, 1, 1, k), ``I``, ``fc1-3`` and the GRUs ``rnn1`` / ``rnn2`` (zeros
+    in the r and z thirds of ``bias_hh_l0``, flax's ``hn`` bias in its n
+    third). ``port_wavernn`` in tts_tpu is the inverse."""
+    up, cell = params["upsample"], params["cell"]
+    rp, rs = up["resnet"], batch_stats["upsample"]["resnet"]
+    sd: Dict[str, np.ndarray] = {}
+    res = "upsample.resnet"
+    sd[f"{res}.conv_in.weight"] = _conv(np.asarray(rp["conv_in"]["kernel"]))
+    _batchnorm(sd, f"{res}.batch_norm", rp["bn_in"], rs["bn_in"])
+    n_blocks = sum(1 for k in rp if k.endswith("_conv1"))
+    for i in range(n_blocks):
+        dst = f"{res}.layers.{i}"
+        for j in (1, 2):
+            sd[f"{dst}.conv{j}.weight"] = _conv(
+                np.asarray(rp[f"res_{i}_conv{j}"]["kernel"]))
+            _batchnorm(sd, f"{dst}.batch_norm{j}", rp[f"res_{i}_bn{j}"],
+                       rs[f"res_{i}_bn{j}"])
+    sd[f"{res}.conv_out.weight"] = _conv(np.asarray(rp["conv_out"]["kernel"]))
+    sd[f"{res}.conv_out.bias"] = np.asarray(rp["conv_out"]["bias"])
+    n_up = sum(1 for k in up if k.startswith("smooth_"))
+    for i in range(n_up):
+        k = np.asarray(up[f"smooth_{i}_kernel"]).reshape(-1)
+        sd[f"upsample.up_layers.{2 * i + 1}.weight"] = k.reshape(1, 1, 1, -1)
+    for name in ("I", "fc1", "fc2", "fc3"):
+        sd[f"{name}.weight"] = np.asarray(cell[name]["kernel"]).T
+        sd[f"{name}.bias"] = np.asarray(cell[name]["bias"])
+    _gru(sd, "rnn1", cell["rnn1"])
+    _gru(sd, "rnn2", cell["rnn2"])
+    return _with_batch_counts(_tensors(sd))
+
+
 def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
     """A tts_tpu checkpoint ({"params", "batch_stats", "meta"}) -> the port
     model's state dict, by the config's model: a vocoder config
-    (``generator_model``): ParallelWaveGAN through
+    (``generator_model``): WaveRNN through ``wavernn_state_dict_from_jax``
+    (with the checkpoint's ``batch_stats``), ParallelWaveGAN through
     ``pwgan_state_dict_from_jax``, the iSTFT MelGAN through
     ``istft_melgan_state_dict_from_jax`` and the MelGAN family through
     ``melgan_state_dict_from_jax``, with the upsample factors and residual
@@ -711,6 +754,8 @@ def state_dict_from_tts_tpu(ckpt: Tree, c: Dict[str, Any]
     if "generator_model" in c:
         from tts_tpu_torch.models.vocoder.registry import setup_generator
         name = c["generator_model"].lower()
+        if name == "wavernn":
+            return wavernn_state_dict_from_jax(params, ckpt["batch_stats"])
         if name == "parallel_wavegan_generator":
             return pwgan_state_dict_from_jax(params)
         gen = setup_generator(c, use_weight_norm=False)

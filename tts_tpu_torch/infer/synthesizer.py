@@ -1,7 +1,7 @@
 """Synthesizer: checkpointed Glow-TTS, Tacotron2 or Tacotron (v1) + an
 optional GAN vocoder (the MelGAN family, ParallelWaveGAN or the iSTFT
-MelGAN), sentence-wise, and streamed chunk by chunk for Tacotron2
-(``tts_stream``) (≙ tts_tpu/infer/synthesizer.py for these models).
+MelGAN) or WaveRNN, sentence-wise, and streamed chunk by chunk for
+Tacotron2 (``tts_stream``) (≙ tts_tpu/infer/synthesizer.py).
 
 Each checkpoint is either the port's ``torch.save({"model": state_dict,
 ...})`` file (a Mozilla TTS state dict loads as it is, since the port keeps
@@ -27,7 +27,11 @@ stands behind those either). ParallelWaveGAN's noise comes from a CPU
 generator seeded 0 for each sentence, so a request gives the same audio
 on every device: tts_tpu's Synthesizer passes that model no noise key and
 raises (ROADMAP C18), and this is the rule tts_tpu applies to its other
-stochastic vocoder, WaveRNN (``PRNGKey(0)``).
+stochastic vocoder, WaveRNN (``PRNGKey(0)``). The port's WaveRNN follows
+it too: its mel is edge-padded by ``pad`` context frames and sampled
+(``WaveRNN.generate``, the whole loop on the model's device) with uniforms
+drawn in one call from a CPU generator seeded 0 for each sentence. A
+WaveRNN whose upsampling is not the audio's hop is refused at load.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from tts_tpu_torch.models.vocoder.melgan import MelganGenerator
 from tts_tpu_torch.models.vocoder.pwgan import ParallelWaveganGenerator
 from tts_tpu_torch.models.vocoder.registry import setup_generator
 from tts_tpu_torch.models.vocoder.serving import fused_inference, pack_stacks
+from tts_tpu_torch.models.vocoder.wavernn import WaveRNN
 from tts_tpu_torch.ops.cuda.fused_melgan import (megakernel_inference,
                                                  megakernel_supported,
                                                  pack_generator_params)
@@ -132,6 +137,13 @@ class Synthesizer:
                 f"iSTFT-MelGAN total hop ({gen.hop}) != vocoder audio "
                 f"hop_length ({self.vocoder_ap.hop_length}); fix the vocoder "
                 f"config")
+        # WaveRNN generates prod(upsample_factors) samples per frame: fail
+        # at load, as tts_tpu does, where that is not the audio's hop
+        if isinstance(gen, WaveRNN) and gen.hop != self.vocoder_ap.hop_length:
+            raise ValueError(
+                f"WaveRNN upsample_factors product ({gen.hop}) != vocoder "
+                f"audio hop_length ({self.vocoder_ap.hop_length}); fix the "
+                f"vocoder config")
         gen.load_state_dict(sd)
         self.vocoder_model = gen.to(self.device).eval()
         self._packed = self._stacks = None
@@ -165,6 +177,13 @@ class Synthesizer:
         elif isinstance(gen, ParallelWaveganGenerator):
             wav = gen.inference(mel.transpose(1, 2),
                                 torch.Generator().manual_seed(0))[0, 0]
+        elif isinstance(gen, WaveRNN):
+            # tts_tpu's steps: edge-pad the context frames, then sample
+            # with draws from a generator seeded 0 for each sentence
+            mel_p = torch.nn.functional.pad(mel.transpose(1, 2),
+                                            (gen.pad, gen.pad),
+                                            mode="replicate")
+            wav = gen.generate(mel_p, torch.Generator().manual_seed(0))[0]
         else:
             wav = gen.inference(mel.transpose(1, 2))[0, 0]
         wav = wav.cpu().numpy()

@@ -168,7 +168,10 @@ class InvConvNear(nn.Module):
 
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         w = self.weight_inv
-        if w is None or self._inverse_of != self.weight._version:
+        # under torch.export the weight is a stand-in tensor of its own
+        # version: the stored inverse holds while the weights are fixed
+        stale = self._inverse_of != self.weight._version
+        if w is None or (stale and not torch.compiler.is_exporting()):
             w = _closed_form_inv(self.weight.float())
         return self._mix(x, w.to(x.dtype)) * x_mask
 

@@ -148,6 +148,18 @@ class GlowTTS(nn.Module):
             "y_lengths": mel_lengths_sqz,
         }
 
+    def decode_mean(self, y_mean: torch.Tensor, y_mask: torch.Tensor,
+                    speaker_ids: Optional[torch.Tensor] = None,
+                    speaker_embeddings: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """The inverse flow from ``forward``'s MAS-aligned latent means
+        (≙ ``GlowTTS.decode_mean``): y_mean (B, C, T_y), y_mask (B, 1, T_y)
+        -> a noise-free mel (B, T_y, C), true to the alignment; what
+        ``bin/eval_model`` scores a Glow checkpoint by."""
+        g = self.speaker_vector(speaker_ids, speaker_embeddings)
+        mel, _ = self.decoder.reverse(y_mean * y_mask, y_mask, g)
+        return mel.transpose(1, 2)
+
     def encode(self, text: torch.Tensor, text_lengths: torch.Tensor,
                g: Optional[torch.Tensor] = None):
         """The encoder as inference runs it. In eval mode without autograd,
@@ -156,9 +168,11 @@ class GlowTTS(nn.Module):
         (what B3's attention block holds on the card), it is one
         ``fused_glow_encoder`` call (the B3 kernels for CUDA tensors, their
         plain version for CPU tensors); otherwise (training mode, grad mode,
-        a speaker vector, a longer text) the module with its dropout."""
+        a speaker vector, a longer text, or under ``torch.export``, which
+        traces the plain modules) the module with its dropout."""
         enc = self.encoder
         if (not self.training and not torch.is_grad_enabled()
+                and not torch.compiler.is_exporting()
                 and g is None and supports_fused_encoder(enc)):
             limit = fused_encoder_max_length(enc, text.device)
             if limit is None or text.shape[1] <= limit:

@@ -1,7 +1,6 @@
 """Vocoder model factories by config name
 (≙ tts_tpu/models/vocoder/registry.py: ``setup_generator`` and
-``setup_discriminator`` with tts_tpu's defaults). WaveRNN is not ported
-yet."""
+``setup_discriminator`` with tts_tpu's defaults)."""
 
 from __future__ import annotations
 
@@ -62,7 +61,28 @@ def setup_generator(c: Dict[str, Any], use_weight_norm: bool = True):
             upsample_factors=tuple(params.get("upsample_factors",
                                               (4, 4, 4, 4))),
             use_weight_norm=use_weight_norm)
-    raise KeyError(f"unknown or not yet ported generator model: {name}")
+    if name == "wavernn":
+        # tts_tpu's overloaded ``mode``: an int is bits mode with that many
+        # bits, "mold" the mixture-of-logistics head
+        from tts_tpu_torch.models.vocoder.wavernn import WaveRNN
+        mode = c.get("mode", params.get("mode", "bits"))
+        bits = params.get("bits", 10)
+        if isinstance(mode, int):
+            bits, mode = mode, "bits"
+        return WaveRNN(
+            bits=bits,
+            rnn_dims=params.get("rnn_dims", 512),
+            fc_dims=params.get("fc_dims", 512),
+            feat_dims=in_channels,
+            compute_dims=params.get("compute_dims", 128),
+            res_out_dims=params.get("res_out_dims", 128),
+            res_blocks=params.get("res_blocks", 10),
+            pad=params.get("pad", 2),
+            upsample_factors=tuple(params.get("upsample_factors", (4, 8, 8))),
+            mulaw=params.get("mulaw", True),
+            mode=mode,
+            nr_mix=params.get("nr_mix", 10))
+    raise KeyError(f"unknown generator model: {name}")
 
 
 def setup_discriminator(c: Dict[str, Any]):

@@ -36,3 +36,21 @@ def weight_norm(module: nn.Module) -> nn.Module:
     module.register_forward_pre_hook(_compute_weight)
     return module
 
+
+
+def remove_weight_norm(model: nn.Module) -> nn.Module:
+    """Fold every ``weight_norm`` of ``model`` back into a plain ``weight``
+    parameter (in place), so the module computes the same function with
+    bare kernels (``torch.export`` traces no parameter assignment)."""
+    for module in model.modules():
+        if "weight_v" not in module._parameters:
+            continue
+        w = weight_from_norm(module.weight_v, module.weight_g).detach()
+        for key, hook in list(module._forward_pre_hooks.items()):
+            if hook is _compute_weight:
+                del module._forward_pre_hooks[key]
+        del module._parameters["weight_v"], module._parameters["weight_g"]
+        if "weight" in module.__dict__:
+            del module.__dict__["weight"]
+        module.weight = nn.Parameter(w)
+    return model

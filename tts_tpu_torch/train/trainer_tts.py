@@ -11,11 +11,12 @@ kernel has no backward). After each epoch, ``eval_epoch`` on the held-out
 split (dropout off, BatchNorm's running statistics, no grad), the best
 model by ``avg_postnet_loss``, and from ``test_delay_epochs`` on
 ``test_run``: the test sentences through ``infer/synthesis.py``, so B7 and
-B8 run on the card, with Griffin-Lim audio logged to TensorBoard. As in
+B8 run on the card, with Griffin-Lim audio and, as in tts_tpu, each
+sentence's spectrogram and alignment figures logged to TensorBoard. As in
 tts_tpu, a sentence that raises is reported (`` [!] test sentence
 failed: ...``) and the next one runs: a bad sentence does not end
-training. ``test_run`` draws no figures (tts_tpu's spectrogram and
-alignment plots need matplotlib, which the port does not depend on).
+training. Where matplotlib is missing the figures are skipped (said once)
+and the audio is logged all the same.
 
 Tacotron v1 (``model`` "tacotron") trains the same way, as tts_tpu's
 trainer does: gradual r, eval epochs, checkpoints; no DDC or backward
@@ -71,6 +72,8 @@ from tts_tpu_torch.train.optim import (RAdamW, gradual_training_schedule,
 from tts_tpu_torch.utils.generic import KeepAverage, StepTimer
 from tts_tpu_torch.utils.loggers import ConsoleLogger, TensorboardLogger
 from tts_tpu_torch.utils.speakers import load_speaker_mapping
+from tts_tpu_torch.utils.visual import (figures_available, plot_alignment,
+                                        plot_spectrogram)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -226,6 +229,7 @@ class TTSTrainer:
 
         self.console = ConsoleLogger()
         self.tb = TensorboardLogger(output_path, config["model"])
+        self.said_no_figures = False
         self.global_step = 0
         self.epoch = 0
         self.best_loss = float("inf")
@@ -323,7 +327,12 @@ class TTSTrainer:
             return {}
         sentences = (self.c.get("test_sentences")
                      or self.DEFAULT_TEST_SENTENCES)
-        audios = {}
+        draw = figures_available()
+        if not draw and not self.said_no_figures:
+            print(" [!] matplotlib is not installed: test sentences log "
+                  "audio without figures")
+            self.said_no_figures = True
+        audios, figures = {}, {}
         for i, sentence in enumerate(sentences):
             try:
                 result = synthesis(self.model, sentence, self.c, self.device,
@@ -332,7 +341,13 @@ class TTSTrainer:
                 print(f" [!] test sentence failed: {e}")
                 continue
             audios[f"test_{i}"] = result["wav"]
+            if draw:
+                figures[f"test_{i}_spectrogram"] = plot_spectrogram(
+                    result["postnet_outputs"])
+                figures[f"test_{i}_alignment"] = plot_alignment(
+                    result["alignments"])
         self.tb.tb_eval_audios(self.global_step, audios, self.ap.sample_rate)
+        self.tb.tb_eval_figures(self.global_step, figures)
         return audios
 
     def fit(self) -> None:

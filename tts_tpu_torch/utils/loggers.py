@@ -108,6 +108,15 @@ class TensorboardLogger:
             self.writer._get_file_writer().add_summary(
                 Summary(value=[Summary.Value(tag=tag, audio=audio)]), step)
 
+    def tb_eval_figures(self, step: int, figures: Dict) -> None:
+        """matplotlib figures as image summaries; each figure is closed."""
+        for key, fig in figures.items():
+            if self.writer is not None:
+                self.writer.add_figure(f"{self.model_name}_EvalFigures/{key}",
+                                       fig, step)
+            import matplotlib.pyplot as plt
+            plt.close(fig)
+
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()
