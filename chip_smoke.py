@@ -258,7 +258,28 @@ Phases, in order; any failure exits non-zero with its traceback:
    path (B1/B2, B3) within 1e-4 of the largest magnitude; the export
    seconds.
 
-Each of phases 22-29 prints its seconds (``phase_s``).
+30. multi-device: (1) bin/distribute runs bin/train_tts on
+   configs/tacotron2_ljspeech.json as shipped (use_data_parallel, r 7,
+   batch 64, bf16) over NCCL with one rank, 2 epochs of one step on the
+   synthetic corpus: every loss finite, rank 0's one checkpoint the only
+   file written, ms a step beside phase 14's. (2) gloo, 2 ranks on this
+   card (``chip_smoke.py --dp-rank R ...``, one process each), full width,
+   fp32, items of one length: the Glow-TTS (batch 32, 16 a rank, its DDI
+   pass on the global batch), Tacotron2 (64, 32 a rank, eval mode) and
+   Multiband-MelGAN GAN (64 x 16,384, 32 a rank) DP steps each against the
+   single-process step on the same global batch (the total loss rtol 1e-5,
+   every tensor atol 1e-6 rtol 1e-4: tts_tpu's tolerances) with the same
+   launches per rank as the single process (B4 2: the DDI pass and the
+   step; B5 12, B6 27 + 18), then 3 train-mode steps after which the two
+   ranks' states are bitwise equal. (3) make_dp_serving of phase 4's
+   pipeline (batch 8 x 128 symbols, 248 frames, noise 0) at gloo 2 and
+   NCCL 1 (in this process): the audio within 1e-4 of the single call's
+   largest magnitude, each rank's B1/B2/B3 launches equal to the single
+   call's. (4) Multiband-MelGAN channel-sharded over a (data 1, model 2)
+   mesh against the unsharded generator (1e-4 of the largest), the sharded
+   layers printed.
+
+Each of phases 22-30 prints its seconds (``phase_s``).
 
 Phases 3 and 4 run Glow's encoder through B3 too: phase 3 asserts its
 launches (one call per sentence), phase 4 prints its share of glow_ms.
@@ -4056,6 +4077,589 @@ def export_phase(dev, root: str, card: str, paths: dict) -> None:
          "card": card})
 
 
+# ---------------------------------------------------------------------------
+# phase 30: multi-device
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_TRAIN_STEPS = 3           # train-mode steps after which ranks must agree
+DP_GLOW = (32, 64, 256)      # global batch, symbols, frames (one length)
+DP_TACO = (64, 64, 224)      # global batch, symbols, frames (r 7: 32 steps)
+DP_GAN_BATCH = 64            # x the config's 16,384 samples
+DP_SERVE = (8, 128)          # phase 4's geometry (248 frames) at batch 8
+DP_SHARD_BATCH = 2
+DP_LOSS_RTOL, DP_ATOL, DP_RTOL = 1e-5, 1e-6, 1e-4   # tts_tpu's tolerances
+LAUNCH_EPOCHS = 2            # the shipped Tacotron2 through the launcher
+
+
+def _repo_config(name: str) -> dict:
+    """A repo config as plain dicts (what torch.load(weights_only=True)
+    reads back)."""
+    from tts_tpu_torch.config import load_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    return json.loads(json.dumps(load_config(
+        os.path.join(here, "configs", f"{name}.json"))))
+
+
+def _tts_batch(n: int, t_text: int, t_mel: int, seed: int, n_chars: int,
+               r: int = 1) -> dict:
+    """Items of one length (so the ranks' masked means compose to the
+    batch's), seeded, on the host: text ids, time-major mel, stop targets
+    grouped by r."""
+    g = torch.Generator().manual_seed(seed)
+    stop = torch.zeros(n, t_mel // r)
+    stop[:, -1] = 1.0
+    return {"text": torch.randint(1, n_chars, (n, t_text), generator=g),
+            "text_lengths": torch.full((n,), t_text, dtype=torch.int32),
+            "mel": torch.randn(n, t_mel, 80, generator=g),
+            "mel_lengths": torch.full((n,), t_mel, dtype=torch.int32),
+            "stop_targets": stop}
+
+
+def dp_inputs(kinds=("glow", "taco", "gan", "serve", "shard"),
+              gan_batch: int = DP_GAN_BATCH) -> dict:
+    """The seeded full-width models and global batches of the DP checks, on
+    the host: Glow-TTS, Tacotron2 (fp32) and Multiband-MelGAN (fp32) from
+    the repo's configs; each optimizer at the config's learning rate
+    without warmup, so one update stands above tts_tpu's atol of 1e-6."""
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.models.vocoder.registry import (setup_discriminator,
+                                                       setup_generator)
+    from tts_tpu_torch.text import num_symbols
+    out = {}
+    if "glow" in kinds:
+        c = _repo_config("glow_tts_ljspeech")
+        c["noam_schedule"] = False
+        torch.manual_seed(SEED)
+        n_chars = num_symbols(c.get("use_phonemes", False))
+        m = setup_model(n_chars, 1, c)
+        b = _tts_batch(*DP_GLOW, seed=1, n_chars=n_chars)
+        b["mel"] = b["mel"].transpose(1, 2).contiguous()
+        del b["stop_targets"]
+        out["glow"] = {"config": c, "state": m.state_dict(), "batch": b}
+    if "taco" in kinds:
+        c = _repo_config("tacotron2_ljspeech")
+        c["mixed_precision"] = False
+        torch.manual_seed(SEED)
+        n_chars = num_symbols(c.get("use_phonemes", False))
+        m = setup_model(n_chars, 1, c)
+        out["taco"] = {"config": c, "state": m.state_dict(),
+                       "batch": _tts_batch(*DP_TACO, seed=2, n_chars=n_chars,
+                                           r=m.r)}
+    voc = _repo_config("multiband_melgan")
+    voc["mixed_precision"] = False
+    if "gan" in kinds:
+        torch.manual_seed(SEED)
+        gen, disc = setup_generator(voc), setup_discriminator(voc)
+        g = torch.Generator().manual_seed(3)
+        frames = voc["seq_len"] // voc["audio"]["hop_length"]
+        batch = {s: {"mel": torch.randn(gan_batch, 80, frames, generator=g),
+                     "audio": 0.3 * torch.randn(gan_batch, 1, voc["seq_len"],
+                                                generator=g)}
+                 for s in "GD"}
+        out["gan"] = {"config": voc, "G": gen.state_dict(),
+                      "D": disc.state_dict(), "batch": batch}
+    if "serve" in kinds or "shard" in kinds:
+        torch.manual_seed(SEED)
+        voc_sd = setup_generator(voc).state_dict()
+    if "serve" in kinds:
+        c = _repo_config("glow_tts_ljspeech")
+        torch.manual_seed(SEED)
+        glow = setup_model(128, 1, c)
+        n, t_text = DP_SERVE
+        g = torch.Generator().manual_seed(4)
+        out["serve"] = {"config": c, "glow": glow.state_dict(),
+                        "frames": MEL_FRAMES,
+                        "voc_config": voc, "voc": voc_sd,
+                        "text": torch.randint(1, 128, (n, t_text),
+                                              generator=g),
+                        "lengths": torch.full((n,), t_text,
+                                              dtype=torch.int32)}
+    if "shard" in kinds:
+        g = torch.Generator().manual_seed(5)
+        out["shard"] = {"voc_config": voc, "voc": voc_sd,
+                        "mel": torch.randn(DP_SHARD_BATCH, 80, MEL_FRAMES,
+                                           generator=g)}
+    return out
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _host_state(module) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in
+            module.state_dict().items()}
+
+
+def _digest(*modules) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for m in modules:
+        for k, v in m.state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _glow(spec, dev):
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.text import num_symbols
+    from tts_tpu_torch.train.optim import make_optimizer
+    c = spec["config"]
+    m = setup_model(num_symbols(c.get("use_phonemes", False)), 1, c)
+    m.load_state_dict(spec["state"])
+    m = m.to(dev)
+    return m, make_optimizer(m, lr=c["lr"], grad_clip=c.get("grad_clip", 5.0))
+
+
+def _taco(spec, dev):
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.text import num_symbols
+    from tts_tpu_torch.train.optim import make_optimizer
+    from tts_tpu_torch.train.trainer_tts import loss_kwargs_from_config
+    c = spec["config"]
+    m = setup_model(num_symbols(c.get("use_phonemes", False)), 1, c)
+    m.load_state_dict(spec["state"])
+    m = m.to(dev)
+    return (m, make_optimizer(m, lr=c["lr"], grad_clip=c.get("grad_clip",
+                                                               5.0)),
+            dict(loss_kwargs_from_config(c), r=m.r))
+
+
+def _gan(spec, dev, mesh=None):
+    from tts_tpu_torch.models.vocoder.registry import (setup_discriminator,
+                                                       setup_generator)
+    from tts_tpu_torch.train.trainer_vocoder import make_gan_step
+    c = spec["config"]
+    gen, disc = setup_generator(c), setup_discriminator(c)
+    gen.load_state_dict(spec["G"])
+    disc.load_state_dict(spec["D"])
+    gen, disc = gen.to(dev).train(), disc.to(dev).train()
+    return gen, disc, make_gan_step(c, gen, disc, dev, mesh=mesh)
+
+
+def _serving_fn(spec, dev):
+    """phase 4's pipeline, noise 0: ids -> Glow-TTS (B3) -> the vocoder
+    kernel chain (B1/B2)."""
+    from tts_tpu_torch.models.registry import setup_model
+    from tts_tpu_torch.models.vocoder.fold import fold_weight_norm
+    from tts_tpu_torch.models.vocoder.registry import setup_generator
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    glow = setup_model(128, 1, spec["config"])
+    glow.load_state_dict(spec["glow"])
+    glow = glow.to(dev).eval()
+    glow.store_inverse()
+    voc = setup_generator(spec["voc_config"])
+    voc.load_state_dict(spec["voc"])
+    packed = M.pack_generator_params(voc, fold_weight_norm(voc.state_dict()),
+                                     dev)
+
+    @torch.no_grad()
+    def synthesize(text, lengths):
+        out = glow.inference(text, lengths, noise_scale=0.0,
+                             y_max_length=spec["frames"])
+        mel = out["model_outputs"].float().contiguous()
+        return M.megakernel_generator_apply(voc, packed, mel)
+
+    return synthesize
+
+
+def _launched():
+    from tts_tpu_torch.ops.cuda import build
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return dict(build.LAUNCHES)
+
+
+def dp_run(inputs: dict, dev, mesh=None) -> dict:
+    """The checks' work on this process: with ``mesh``, the DP steps on
+    this rank's contiguous part of each global batch (a world of its ranks),
+    else the single-process steps on the whole batches. Per model: the
+    losses, the state after one step in eval mode (Glow after its DDI pass
+    on the global batch, Tacotron2 with no dropout, the GAN as it trains),
+    the launches of that part; then the ms of each of DP_TRAIN_STEPS more
+    steps in train mode (the host's clock around a synchronised step), and
+    with ``mesh`` a digest of the state after them."""
+    from tts_tpu_torch.models.glow_tts import apply_ddi
+    from tts_tpu_torch.ops.cuda import build
+    from tts_tpu_torch.parallel import (make_dp_train_step,
+                                        make_glow_dp_train_step, replicate)
+    from tts_tpu_torch.parallel.data_parallel import shard_batch
+    from tts_tpu_torch.train.trainer_glow import train_step as glow_step
+    from tts_tpu_torch.train.trainer_tts import train_step as taco_step
+
+    def part(batch):
+        return batch if mesh is None else shard_batch(batch, mesh)
+
+    def timed(step, n=DP_TRAIN_STEPS):
+        ms = []
+        for _ in range(n):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    out = {}
+    if "glow" in inputs:
+        m, opt = _glow(inputs["glow"], dev)
+        batch = _on(inputs["glow"]["batch"], dev)
+        build.reset_launches()
+        apply_ddi(m.eval(), batch)
+        if mesh is None:
+            losses = glow_step(m, opt, batch)
+        else:
+            replicate(m, mesh)
+            losses = make_glow_dp_train_step(m, opt, mesh, train=False)(
+                part(batch))
+        out["glow"] = {"losses": losses, "launches": _launched(),
+                       "state": _host_state(m)}
+        if mesh is None:
+            out["glow"]["ms"] = timed(lambda: glow_step(m.train(), opt,
+                                                        batch))
+        else:
+            step = make_glow_dp_train_step(m, opt, mesh, seed=SEED)
+            out["glow"]["ms"] = timed(lambda: step(part(batch)))
+            out["glow"]["digest"] = _digest(m)
+        del m, opt
+    if "taco" in inputs:
+        m, opt, kw = _taco(inputs["taco"], dev)
+        batch = _on(inputs["taco"]["batch"], dev)
+        build.reset_launches()
+        if mesh is None:
+            # as the DP step's eval mode: cuDNN's RNN has no eval backward
+            with torch.backends.cudnn.flags(enabled=False):
+                losses = taco_step(m.eval(), opt, batch, kw)
+        else:
+            losses = make_dp_train_step(m, opt, mesh, kw, train=False)(
+                part(batch))
+        out["taco"] = {"losses": losses, "launches": _launched(),
+                       "state": _host_state(m)}
+        if mesh is None:
+            out["taco"]["ms"] = timed(lambda: taco_step(m.train(), opt,
+                                                        batch, kw))
+        else:
+            step = make_dp_train_step(m, opt, mesh, kw, seed=SEED)
+            out["taco"]["ms"] = timed(lambda: step(part(batch)))
+            out["taco"]["digest"] = _digest(m)
+        del m, opt
+    if "gan" in inputs:
+        gen, disc, step = _gan(inputs["gan"], dev, mesh)
+        b = {s: part(_on(inputs["gan"]["batch"][s], dev)) for s in "GD"}
+        build.reset_launches()
+        losses = step(b["G"], b["D"], train_disc=True)
+        out["gan"] = {"losses": losses, "launches": _launched(),
+                      "state": {"G": _host_state(gen),
+                                "D": _host_state(disc)}}
+        out["gan"]["ms"] = timed(lambda: step(b["G"], b["D"],
+                                              train_disc=True))
+        if mesh is not None:
+            out["gan"]["digest"] = _digest(gen, disc)
+        del gen, disc, step
+    return out
+
+
+def dp_serve(inputs: dict, dev, mesh=None) -> dict:
+    """Batch DP_SERVE through make_dp_serving over ``mesh`` (or the plain
+    call), and with ``inputs["shard"]`` and a mesh the channel-sharded
+    generator over a (data 1, model world) mesh (or the unsharded one)."""
+    from tts_tpu_torch.infer.serving_dp import make_dp_serving
+    from tts_tpu_torch.models.vocoder.registry import setup_generator
+    from tts_tpu_torch.ops.cuda import build
+    out = {}
+    if "serve" in inputs:
+        spec = inputs["serve"]
+        fn = _serving_fn(spec, dev)
+        if mesh is not None:
+            fn = make_dp_serving(fn, mesh)
+        text, lengths = _on(spec["text"], dev), _on(spec["lengths"], dev)
+        fn(text, lengths)                   # warm
+        build.reset_launches()
+        t0 = time.perf_counter()
+        wav = fn(text, lengths)
+        launches = _launched()
+        out["serve"] = {"wav": wav.cpu(), "launches": launches,
+                        "ms": 1e3 * (time.perf_counter() - t0)}
+    if "shard" in inputs:
+        spec = inputs["shard"]
+        gen = setup_generator(spec["voc_config"])
+        gen.load_state_dict(spec["voc"])
+        gen = gen.to(dev).eval()
+        mel = _on(spec["mel"], dev)
+        if mesh is None:
+            with torch.no_grad():
+                wav = gen.pqmf.synthesis(gen(mel))
+            out["shard"] = {"wav": wav.cpu()}
+        else:
+            from tts_tpu_torch.parallel import make_mesh
+            from tts_tpu_torch.parallel.model_parallel import (
+                channel_shardings, make_sharded_generator_forward,
+                shard_params)
+            world = mesh["data"].size()
+            mesh2 = make_mesh((("data", 1), ("model", world)))
+            names = channel_shardings(gen, mesh2)
+            fwd = make_sharded_generator_forward(shard_params(gen, mesh2),
+                                                 mesh2)
+            out["shard"] = {"wav": fwd(mel).cpu(), "sharded": names}
+    return out
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of phase 30's world: ``chip_smoke.py --dp-rank R --world N
+    --url U --dir D [--backend B] [--device cpu]`` reads D/inputs.pt, writes
+    D/rank<R>.pt."""
+    import argparse
+
+    from tts_tpu_torch.parallel import make_mesh
+    from tts_tpu_torch.parallel.mesh import finalize, initialize_multihost
+    p = argparse.ArgumentParser()
+    p.add_argument("--dp-rank", type=int, required=True)
+    p.add_argument("--world", type=int, required=True)
+    p.add_argument("--url", required=True)
+    p.add_argument("--dir", required=True)
+    p.add_argument("--backend", default="gloo")
+    p.add_argument("--device", default=None)
+    a = p.parse_args(argv)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = initialize_multihost(a.url, a.world, a.dp_rank, backend=a.backend,
+                               device=a.device)
+    mesh = make_mesh()
+    inputs = torch.load(os.path.join(a.dir, "inputs.pt"), weights_only=True)
+    t0 = time.perf_counter()
+    out = dp_run(inputs, dev, mesh)
+    out.update(dp_serve(inputs, dev, mesh))
+    out["seconds"] = time.perf_counter() - t0
+    out["device"] = str(dev)
+    torch.save(out, os.path.join(a.dir, f"rank{a.dp_rank}.pt"))
+    finalize()
+    return 0
+
+
+def spawn_dp_ranks(workdir: str, world: int = DP_WORLD,
+                   backend: str = "gloo", timeout_s: float = 600,
+                   device=None) -> list:
+    """``world`` ranks of dp_rank_main on this machine's card(s); their
+    outputs in rank order. A rank that fails ends the others and raises
+    with its log."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    url = "file://" + os.path.join(workdir, "store")
+    env = dict(os.environ, PYTHONPATH=here)
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             "--world", str(world), "--url", url, "--dir", workdir,
+             "--backend", backend] + (["--device", device] if device
+                                      else []),
+            cwd=here, env=env, stdout=logs[r],
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        codes = [p.poll() for p in procs]
+        if any(c != 0 for c in codes):
+            for log_file in logs:
+                log_file.seek(0)
+            raise RuntimeError(f"DP ranks exited {codes}:\n" + "\n".join(
+                f"--- rank {r}\n{f.read()[-4000:]}"
+                for r, f in enumerate(logs)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def dp_compare(ranks: list, single: dict) -> dict:
+    """Each rank's DP step against the single-process step (tts_tpu's
+    tolerances: the total loss rtol 1e-5, every tensor of the state atol
+    1e-6 rtol 1e-4), the per-rank launches against the single process's
+    (the per-step rule of phases 6 and 8 is per rank), and the ranks'
+    train-mode states bitwise equal. Returns the largest deviations."""
+    summary = {}
+    totals = {"glow": ("loss",), "taco": ("loss",),
+              "gan": ("G_loss", "D_loss")}
+    for kind, want in single.items():
+        if kind not in totals:
+            continue
+        dev_loss, dev_state = 0.0, 0.0
+        for rank in ranks:
+            got = rank[kind]
+            for key in totals[kind]:
+                rel = abs(got["losses"][key] - want["losses"][key]) / abs(
+                    want["losses"][key])
+                dev_loss = max(dev_loss, rel)
+                assert rel <= DP_LOSS_RTOL, (kind, key, got["losses"][key],
+                                             want["losses"][key])
+            states = ([(got["state"], want["state"])] if kind != "gan" else
+                      [(got["state"][s], want["state"][s]) for s in "GD"])
+            for g_sd, w_sd in states:
+                assert set(g_sd) == set(w_sd), kind
+                for name, w in w_sd.items():
+                    if not w.is_floating_point():
+                        assert torch.equal(g_sd[name], w), (kind, name)
+                        continue
+                    diff = (g_sd[name] - w).abs()
+                    dev_state = max(dev_state, float(diff.max()))
+                    assert bool((diff <= DP_ATOL + DP_RTOL * w.abs()).all()), \
+                        (kind, name, float(diff.max()))
+            assert got["launches"] == want["launches"], \
+                (kind, got["launches"], want["launches"])
+        assert len({r[kind]["digest"] for r in ranks}) == 1, kind
+        summary[kind] = {"loss_rel_dev": dev_loss,
+                         "state_max_abs_dev": dev_state,
+                         "train_ms_per_step": {
+                             "single": want["ms"],
+                             **{f"rank{r}": rank[kind]["ms"]
+                                for r, rank in enumerate(ranks)}},
+                         "losses_dp_rank0": ranks[0][kind]["losses"],
+                         "launches_per_rank": ranks[0][kind]["launches"],
+                         "train_mode_steps_bitwise_equal": DP_TRAIN_STEPS}
+    return summary
+
+
+def _close_to(got: torch.Tensor, want: torch.Tensor) -> float:
+    err = float((got - want).abs().max())
+    assert got.shape == want.shape and err <= TOL * float(want.abs().max()), \
+        (tuple(got.shape), tuple(want.shape), err)
+    return err
+
+
+def multi_device_phase(dev, root: str, card: str, taco_per_r: dict) -> None:
+    from tts_tpu_torch.config import load_config
+    from tts_tpu_torch.ops.cuda import fused_melgan as M
+    from tts_tpu_torch.ops.cuda import fused_resstack as R
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    from tts_tpu_torch.ops.cuda import grouped_conv_grad as GCK
+    from tts_tpu_torch.ops.cuda import mas as MAS
+    from tts_tpu_torch.ops.cuda import stft_mag as SK
+    from tts_tpu_torch.parallel import make_mesh
+    from tts_tpu_torch.parallel.mesh import finalize, initialize_multihost
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # the ranks are processes of their own: hand them this one's cache
+    torch.cuda.empty_cache()
+    # 1. the shipped Tacotron2 config through the launcher, NCCL, 1 rank
+    corpus = write_corpus(os.path.join(root, "LJSpeech"))
+    c = load_config(os.path.join(here, "configs", "tacotron2_ljspeech.json"))
+    assert c["use_data_parallel"] and c["mixed_precision"]
+    c.update(datasets=[{"name": "ljspeech", "path": corpus,
+                        "meta_file_train": "metadata.csv"}],
+             phoneme_cache_path=os.path.join(root, "phoneme_cache"),
+             epochs=LAUNCH_EPOCHS, run_eval=False, run_test_sentences=False,
+             print_step=1)
+    cfg_path = os.path.join(root, "tacotron2_dp.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+    runs = os.path.join(root, "dp_runs")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tts_tpu_torch.bin.distribute", "--script",
+         "train_tts", "--num_processes", "1", "--", "--config_path",
+         cfg_path, "--output_path", runs], cwd=here, capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=here))
+    launch_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    out = proc.stdout
+    assert "torch.distributed: 1 rank(s), backend nccl, rank 0 on cuda:0" \
+        in out, out[-3000:]
+    losses = [float(v) for v in re.findall(r"\| > loss: (\S+)", out)]
+    step_ms = [1e3 * float(v) for v in
+               re.findall(r"\| > step_time: (\S+)", out)]
+    assert losses and all(math.isfinite(v) for v in losses), losses
+    [folder] = os.listdir(runs)
+    written = sorted(f for f in os.listdir(os.path.join(runs, folder))
+                     if f.endswith(".pt"))
+    assert written == [f"checkpoint_{len(losses)}.pt"], written
+    log({"phase": "multi_device", "launcher": "bin/distribute -> "
+         "bin/train_tts, configs/tacotron2_ljspeech.json as shipped "
+         "(use_data_parallel, r 7, batch 64, bf16), NCCL, 1 rank",
+         "steps": len(losses), "losses": losses, "ms_per_step": step_ms,
+         "phase14_single_process_ms_per_step_r7":
+             taco_per_r and taco_per_r[7]["ms_per_step"],
+         "checkpoints_written": written, "launch_s": launch_s, "card": card})
+
+    # 2-4. the DP steps, serving and the sharded generator: gloo, 2 ranks
+    # on this card, each against the single-process run on the same inputs
+    workdir = os.path.join(root, "dp_world")
+    os.makedirs(workdir)
+    inputs = dp_inputs()
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    t0 = time.perf_counter()
+    ranks = spawn_dp_ranks(workdir)
+    world_s = time.perf_counter() - t0
+    assert [r["device"] for r in ranks] == ["cuda:0"] * DP_WORLD
+    single = dp_run(inputs, dev)
+    single.update(dp_serve(inputs, dev))
+    summary = dp_compare(ranks, single)
+    assert single["glow"]["launches"] == {MAS.KERNEL: 2}, \
+        single["glow"]["launches"]          # the DDI pass + one step
+    assert single["taco"]["launches"] == {}, single["taco"]["launches"]
+    want_gan = {SK.KERNEL: 12, GCK.DGRAD: 27, GCK.WGRAD: 18}
+    assert single["gan"]["launches"] == want_gan, single["gan"]["launches"]
+    serve_err = {}
+    b123 = (R.KERNEL, M.PROJ_IN, M.UPSAMPLE, M.TAIL, GEK.KERNEL)
+    for r, rank in enumerate(ranks):
+        serve_err[f"gloo_rank{r}"] = _close_to(rank["serve"]["wav"],
+                                               single["serve"]["wav"])
+        assert rank["serve"]["launches"] == single["serve"]["launches"], \
+            (rank["serve"]["launches"], single["serve"]["launches"])
+    assert all(single["serve"]["launches"].get(k, 0) > 0 for k in b123), \
+        single["serve"]["launches"]
+    shard_err = [_close_to(rank["shard"]["wav"], single["shard"]["wav"])
+                 for rank in ranks]
+    assert ranks[0]["shard"]["sharded"] and all(
+        r["shard"]["sharded"] == ranks[0]["shard"]["sharded"] for r in ranks)
+
+    # 3. serving at an NCCL world of 1, in this process
+    initialize_multihost("file://" + os.path.join(root, "nccl_store"), 1, 0,
+                         backend="nccl")
+    try:
+        nccl = dp_serve({"serve": inputs["serve"]}, dev, make_mesh())
+    finally:
+        finalize()
+    serve_err["nccl_1"] = _close_to(nccl["serve"]["wav"],
+                                    single["serve"]["wav"])
+    assert nccl["serve"]["launches"] == single["serve"]["launches"]
+    log({"phase": "multi_device", "dp_steps": "gloo, 2 ranks on one card, "
+         "full width, fp32, each rank against the single-process step on "
+         "the global batch", "geometry": {"glow": DP_GLOW, "taco": DP_TACO,
+                                          "gan_batch": DP_GAN_BATCH},
+         "summary": summary, "world_s": world_s,
+         "rank_s": [r["seconds"] for r in ranks], "card": card})
+    log({"phase": "multi_device", "dp_serving": "Glow-TTS -> MB-MelGAN, "
+         "batch 8 x 128 symbols, 248 frames, noise 0",
+         "max_abs_err_vs_single": serve_err,
+         "launches_per_rank": ranks[0]["serve"]["launches"],
+         "launches_single": single["serve"]["launches"],
+         "ms": {"single": single["serve"]["ms"],
+                "nccl_1": nccl["serve"]["ms"],
+                "gloo_2_rank0": ranks[0]["serve"]["ms"]},
+         "channel_sharded_generator": {
+             "model_dim": DP_WORLD, "max_abs_err": shard_err,
+             "sharded_layers": ranks[0]["shard"]["sharded"]},
+         "phase_s": time.perf_counter() - t_phase, "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4098,7 +4702,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         cli_phase(dev, root)
     with tempfile.TemporaryDirectory() as root:
-        taco2_training_phase(dev, root, card)
+        taco_train = taco2_training_phase(dev, root, card)
     with tempfile.TemporaryDirectory() as root:
         prewarm_phase(root, card)
     with tempfile.TemporaryDirectory() as root:
@@ -4119,6 +4723,8 @@ def main() -> int:
         eval_model_phase(dev, root, card)
         tools_phase(dev, root, card, wavernn)
         export_phase(dev, root, card, wavernn["paths"])
+    with tempfile.TemporaryDirectory() as root:
+        multi_device_phase(dev, root, card, taco_train["per_r"])
 
     names = {
         R.KERNEL: ("tts_tpu_torch/ops/cuda/fused_resstack.cu",
@@ -4195,4 +4801,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -1289,3 +1289,67 @@ def test_eval_model_runs_b4_and_b7_on_the_card(cuda, tmp_path):
             if isinstance(value, float):
                 assert abs(got[key] - value) <= 1e-4 * max(abs(value), 1e-6), \
                     (key, got[key], value)
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel layer on the card (chip_smoke.py's phase 30 helpers:
+# full-width models from the repo's configs, fp32, one length per batch)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world_of_one(cuda, tmp_path):
+    from tts_tpu_torch.parallel import make_mesh
+    from tts_tpu_torch.parallel.mesh import finalize, initialize_multihost
+    initialize_multihost(f"file://{tmp_path}/store", 1, 0, backend="nccl")
+    try:
+        yield make_mesh()
+    finally:
+        finalize()
+
+
+@pytest.mark.cuda
+def test_dp_steps_at_an_nccl_world_of_one_equal_the_single_step(
+        cuda, nccl_world_of_one):
+    """The Glow-TTS and Tacotron2 DP steps over NCCL (a world of one)
+    against the single-process step: the total loss rtol 1e-5, every tensor
+    atol 1e-6 rtol 1e-4 (tts_tpu's), the same launches (Glow: B4 for the
+    DDI pass and the step)."""
+    from chip_smoke import dp_compare, dp_inputs, dp_run
+    inputs = dp_inputs(("glow", "taco"))
+    single = dp_run(inputs, cuda)
+    summary = dp_compare([dp_run(inputs, cuda, nccl_world_of_one)], single)
+    assert single["glow"]["launches"] == {MAS.KERNEL: 2}
+    assert set(summary) == {"glow", "taco"}
+
+
+@pytest.mark.cuda
+def test_gan_dp_step_at_a_gloo_world_of_two_on_one_card(cuda, tmp_path):
+    """Multiband-MelGAN's GAN step (batch 4 x 16,384, 2 a rank) at a gloo
+    world of 2 on this card against the single-process step; each rank
+    launches B5 12 times and B6 27 + 18 times, as one process does."""
+    import os
+
+    from chip_smoke import dp_compare, dp_inputs, dp_run, spawn_dp_ranks
+    inputs = dp_inputs(("gan",), gan_batch=4)
+    torch.save(inputs, os.path.join(tmp_path, "inputs.pt"))
+    ranks = spawn_dp_ranks(str(tmp_path), timeout_s=300)
+    single = dp_run(inputs, cuda)
+    dp_compare(ranks, single)
+    assert single["gan"]["launches"] == {SK.KERNEL: 12, GCK.DGRAD: 27,
+                                         GCK.WGRAD: 18}
+
+
+@pytest.mark.cuda
+def test_dp_serving_launches_b1_b2_b3(cuda, nccl_world_of_one):
+    """make_dp_serving (NCCL, a world of one) of Glow-TTS -> MB-MelGAN at
+    batch 8: the same launches of B3, B2 and B1 as the plain call, and the
+    same audio within 1e-4 of its largest magnitude."""
+    from chip_smoke import dp_inputs, dp_serve
+    from tts_tpu_torch.ops.cuda import glow_encoder as GEK
+    inputs = dp_inputs(("serve",))
+    want = dp_serve(inputs, cuda)["serve"]
+    got = dp_serve(inputs, cuda, nccl_world_of_one)["serve"]
+    assert got["launches"] == want["launches"]
+    assert all(want["launches"].get(k, 0) > 0 for k in (
+        R.KERNEL, M.PROJ_IN, M.UPSAMPLE, M.TAIL, GEK.KERNEL))
+    _close(got["wav"], want["wav"])

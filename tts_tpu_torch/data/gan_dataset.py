@@ -22,6 +22,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from tts_tpu_torch.data.prefetch import prefetch
+from tts_tpu_torch.data.sampler import shard_indices
 
 
 def load_wav_data(data_path: str, eval_split_size: int
@@ -85,12 +86,15 @@ class GANDataset:
         return {"audio": np.stack([s["audio"] for s in samples]),
                 "mel": np.stack([s["mel"] for s in samples])}
 
-    def batches(self, batch_size: int, seed: int = 0):
+    def batches(self, batch_size: int, seed: int = 0, num_shards: int = 1,
+                shard_id: int = 0):
         """Yields {'G': batch, 'D': batch} over the items shuffled with
-        ``seed``: the D batch holds the mapped items of the G batch's.
+        ``seed``, this shard's stride-slice of them (``shard_indices``, as
+        tts_tpu's): the D batch holds the mapped items of the G batch's.
         Whole batches only."""
         idxs = list(range(len(self.items)))
         random.Random(seed).shuffle(idxs)
+        idxs = shard_indices(idxs, num_shards, shard_id)
         n_batches = len(idxs) // batch_size
         if n_batches == 0:
             return

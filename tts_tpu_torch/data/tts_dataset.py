@@ -12,8 +12,10 @@ tts_tpu; the trainer moves them to the device and to (B, C, T). With
 ``speaker_ids``; with ``speaker_embedding_mapping`` (wav path -> d-vector,
 from speakers.json) ``speaker_embeddings``; with ``compute_linear_spec``
 (Tacotron v1) ``linear``, the normalized linear spectrogram (B, T_frames,
-fft_size / 2 + 1), zero-padded as the mel. Sharding the dataset across
-data-parallel workers is not ported yet.
+fft_size / 2 + 1), zero-padded as the mel. A data-parallel rank reads its
+stride shard of the items (``num_shards`` / ``shard_id``, as tts_tpu's
+Tacotron trainer) or its contiguous slice of every global batch (``part``
+/ ``parts``, the rows tts_tpu's ``shard_batch`` gives a device).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from tts_tpu_torch.data.prefetch import prefetch
+from tts_tpu_torch.data.sampler import shard_indices
 from tts_tpu_torch.text import phoneme_to_sequence, text_to_sequence
 
 SHAPE_PAD = 32      # text and frame lengths are padded to multiples of this
@@ -182,25 +185,59 @@ class TTSDataset:
 
     # -- iteration ---------------------------------------------------------
 
-    def batches(self, batch_size: int, *, shuffle: bool = False,
-                seed: int = 0):
-        """Yield the full batches, collated by a background thread.
-
-        The DataLoader-worker equivalent: one producer thread computes
-        features (STFT on host) while the consumer feeds the device.
-        """
+    def batch_indices(self, batch_size: int, *, shuffle: bool = False,
+                      seed: int = 0, num_shards: int = 1,
+                      shard_id: int = 0) -> List[List[int]]:
+        """The items of each full batch that ``batches`` yields, in order:
+        the index list (shuffled with ``seed``), then this shard's
+        stride-slice of it (``data/sampler.py::shard_indices``, as
+        tts_tpu's), cut into batches of ``batch_size``."""
         idxs = list(range(len(self.items)))
         if shuffle:
             # an explicit generator seeded with ``seed`` (tts_tpu shuffles
             # with random.Random(seed): same seeding, another permutation)
             g = torch.Generator().manual_seed(seed)
             idxs = torch.randperm(len(idxs), generator=g).tolist()
-        n_batches = len(idxs) // batch_size
-        if n_batches == 0:
-            return
+        idxs = shard_indices(idxs, num_shards, shard_id)
+        return [idxs[b * batch_size: (b + 1) * batch_size]
+                for b in range(len(idxs) // batch_size)]
+
+    def part_of_batch(self, sel: Sequence[int], part: int,
+                      parts: int) -> List[int]:
+        """The ``part``-th of ``parts`` contiguous slices of the batch of
+        items ``sel`` in the order ``collate`` puts them (text length
+        descending, ties in ``sel``'s order): the rows that tts_tpu's
+        ``shard_batch`` hands a device of the data axis. Only the texts are
+        read to order them."""
+        if len(sel) % parts:
+            raise ValueError(f"a batch of {len(sel)} does not split into "
+                             f"{parts} equal parts")
+        order = sorted(sel, key=lambda i: len(self.text_ids(self.items[i][0])),
+                       reverse=True)
+        n = len(sel) // parts
+        return order[part * n: (part + 1) * n]
+
+    def batches(self, batch_size: int, *, shuffle: bool = False,
+                seed: int = 0, num_shards: int = 1, shard_id: int = 0,
+                part: int = 0, parts: int = 1):
+        """Yield the full batches of ``batch_indices``, collated by a
+        background thread. With ``parts`` > 1 each is only its ``part``-th
+        contiguous slice (``part_of_batch``), and only that slice's
+        features are computed.
+
+        The DataLoader-worker equivalent: one producer thread computes
+        features (STFT on host) while the consumer feeds the device.
+        """
+        sels = self.batch_indices(batch_size, shuffle=shuffle, seed=seed,
+                                  num_shards=num_shards, shard_id=shard_id)
+        if parts > 1 and batch_size % parts:
+            raise ValueError(f"batch size {batch_size} does not split into "
+                             f"{parts} equal parts")
 
         def make_batch(b: int) -> Dict[str, np.ndarray]:
-            sel = idxs[b * batch_size: (b + 1) * batch_size]
+            sel = sels[b]
+            if parts > 1:
+                sel = self.part_of_batch(sel, part, parts)
             return self.collate([self[i] for i in sel])
 
-        yield from prefetch(make_batch, n_batches)
+        yield from prefetch(make_batch, len(sels))

@@ -5,7 +5,9 @@ shared library with a plain C interface, for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), at first use, into
 ``build/tts_tpu_torch_kernels/`` at the root of the checkout. The file name
 carries a hash of the source and the flags, so an edited source is rebuilt.
-``build_all`` starts one ``nvcc`` per source at once and waits for them all.
+``build_all`` starts one ``nvcc`` per source at once and waits for them all,
+holding a file lock on the build directory so that processes sharing it
+(the ranks of a data-parallel run) build each source once.
 Libraries are loaded with ``ctypes``; pointers and the stream pass as
 ``c_void_p``.
 
@@ -17,6 +19,7 @@ entry point that loops over steps adds the number of kernels it launched).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -67,10 +70,24 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
     """Compile every source whose library is missing, all at once; returns
     the seconds taken. Raises with nvcc's output if a build fails."""
     start = time.perf_counter()
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+    names = list(names)
+    if all(library_path(n).exists() for n in names):
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one process compiles at a time (the ranks of a data-parallel
+    # run share the build directory); the others find the libraries built
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            _build([n for n in names if not library_path(n).exists()])
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return time.perf_counter() - start
+
+
+def _build(todo) -> None:
+    if not todo:
+        return
     nvcc = _nvcc()
     procs = {}
     for name in todo:
@@ -89,7 +106,6 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
             os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return time.perf_counter() - start
 
 
 def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

@@ -78,6 +78,32 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def save_checkpoint_multihost(output_dir: str, **kwargs) -> Optional[str]:
+    """``save_checkpoint`` by rank 0 alone, then a barrier of every rank, so
+    that none reads a half-written file (≙ tts_tpu's
+    ``save_checkpoint_multihost``; the reference's rank-0 saves). Returns
+    the path on rank 0, None on the others."""
+    import torch.distributed as dist
+    path = None
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        path = save_checkpoint(output_dir, **kwargs)
+    if dist.is_initialized():
+        dist.barrier()
+    return path
+
+
+def restore_for_mesh(path: str, device=None) -> Dict[str, Any]:
+    """The checkpoint at ``path`` with its model tensors on ``device`` (this
+    rank's, ``parallel/mesh.py::device()``, by default): every rank loads
+    the same file, so each holds the same values (≙ tts_tpu's
+    ``restore_for_mesh``)."""
+    from tts_tpu_torch.parallel.mesh import device as rank_device
+    ckpt = load_checkpoint(path)
+    dev = rank_device() if device is None else torch.device(device)
+    ckpt["model"] = {k: v.to(dev) for k, v in ckpt["model"].items()}
+    return ckpt
+
+
 def is_torch_checkpoint(path: str) -> bool:
     """True for a ``torch.save`` file: a zip archive (``PK``) or a legacy
     pickle (protocol 2 and later start with the PROTO opcode ``0x80``).

@@ -23,6 +23,15 @@ the offsets one from ``crop_generator`` (on the host, since slicing needs
 them as host integers: a draw on the device would stall the queue), or
 either is handed in through ``draws``.
 
+With ``mesh`` the step is data-parallel over the mesh's data dim (≙
+``make_gan_train_step(mesh=...)``): each rank runs both updates on its part
+of the batches; the generator's gradients and losses are averaged over the
+ranks before ``opt_G``, the discriminator's before ``opt_D``
+(``parallel/data_parallel.py``), and the noise and crop generators are
+reseeded per rank (``rank_seed``), as tts_tpu folds the axis index into
+its key. B5 and B6 run per rank. The vocoder trainer does not use this
+mode, as tts_tpu's does not.
+
 ``mixed_precision`` is tts_tpu's: bfloat16 copies of the parameters run the
 forwards (``torch.func.functional_call``), so gradients reach the float32
 masters through the cast; the mel input is bfloat16; scores, features and
@@ -41,6 +50,7 @@ from torch.func import functional_call
 from tts_tpu_torch.losses.vocoder_losses import (discriminator_loss,
                                                  generator_loss)
 from tts_tpu_torch.models.vocoder.pwgan import ParallelWaveganGenerator
+from tts_tpu_torch.parallel import data_parallel as DP
 from tts_tpu_torch.train.optim import RAdamW
 
 Tensor = torch.Tensor
@@ -78,7 +88,8 @@ class GANTrainStep:
                  crop_generator: Optional[torch.Generator] = None,
                  gen_loss_kwargs: Optional[Dict] = None,
                  disc_loss_kwargs: Optional[Dict] = None,
-                 mixed_precision: bool = False):
+                 mixed_precision: bool = False, mesh=None,
+                 axis: str = "data"):
         self.gen, self.disc = gen, disc
         self.opt_G, self.opt_D = opt_G, opt_D
         self.hop_len, self.conv_pad = hop_len, conv_pad
@@ -91,6 +102,22 @@ class GANTrainStep:
             self.gkw.setdefault("use_subband_stft_loss", True)
         self.dkw = dict(disc_loss_kwargs or {})
         self.dtype = torch.bfloat16 if mixed_precision else torch.float32
+        self.group = None
+        if mesh is not None:
+            self.group, self.n, rank = DP.require_group(mesh, axis)
+            self.generator, self.crop_generator = (
+                g if g is None else torch.Generator(g.device).manual_seed(
+                    DP.rank_seed(g.initial_seed(), rank))
+                for g in (generator, crop_generator))
+
+    def _reduce(self, module: nn.Module, losses: Dict[str, Tensor]
+                ) -> Dict:
+        """With a mesh, ``module``'s gradients averaged over the data dim
+        and ``losses`` too (as floats)."""
+        if self.group is None:
+            return losses
+        DP.average_gradients(module.parameters(), self.group, self.n)
+        return DP.average_losses(losses, self.group, self.n)
 
     def draw(self, batch: Dict[str, Tensor]) -> Dict:
         """One side's random inputs: white noise (B, 1, T) for a
@@ -187,11 +214,14 @@ class GANTrainStep:
         self.opt_G.zero_grad()
         losses = self.generator_losses(batch_G, train_disc, draws.get("G"))
         losses["G_loss"].backward()
+        losses = self._reduce(self.gen, losses)
         self.opt_G.step()
         if train_disc:
             self.opt_D.zero_grad()
             d_losses = self.discriminator_losses(batch_D, draws.get("D"))
             d_losses["D_loss"].backward()
+            d_losses = self._reduce(self.disc, d_losses)
             self.opt_D.step()
             losses.update(d_losses)
-        return {k: v.item() for k, v in losses.items()}
+        return {k: v.item() if isinstance(v, Tensor) else v
+                for k, v in losses.items()}

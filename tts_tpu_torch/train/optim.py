@@ -179,14 +179,16 @@ def make_optimizer(model: nn.Module, *, lr: float = 1e-4,
 
 
 def gradual_training_schedule(global_step: int,
-                              schedule: Sequence[Sequence[int]]
-                              ) -> Tuple[int, int]:
+                              schedule: Sequence[Sequence[int]],
+                              num_replicas: int = 1) -> Tuple[int, int]:
     """[[start_step, r, batch_size], ...] -> the (r, batch_size) of the last
-    entry whose start the step has reached (the first entry's before any).
-    One replica: tts_tpu scales the step by its replica count, which the
-    port's single-device trainer does not have."""
+    entry whose start the step, times ``num_replicas``, has reached (the
+    first entry's before any): tts_tpu scales the step by its replica count
+    as the reference scales it by its GPU count. The trainers pass none, as
+    tts_tpu's do."""
+    step = global_step * max(num_replicas, 1)
     r, bs = schedule[0][1], schedule[0][2]
     for entry in schedule:
-        if global_step >= entry[0]:
+        if step >= entry[0]:
             r, bs = entry[1], entry[2]
     return r, bs

@@ -8,15 +8,23 @@ pass draw from the trainer's ``torch.Generator`` on its device; each
 epoch's shuffle is seeded with the epoch number, as in tts_tpu.
 With ``use_speaker_embedding`` the model learns one embedding per speaker
 of the training split (sorted names -> ids), as tts_tpu's trainer does;
-the batches carry ``speaker_ids``. The data-parallel step is not ported
-yet.
+the batches carry ``speaker_ids``.
+
+With ``use_data_parallel`` in a process group (``bin/distribute.py``) the
+step is ``parallel.make_glow_dp_train_step``: each rank trains on the r-th
+contiguous slice of every global batch of ``batch_size`` (the rows
+tts_tpu's ``shard_batch`` gives device r), and its loader collates only
+that slice. ActNorm's data-dependent init runs on the first global batch,
+collated whole, and rank 0's parameters are then broadcast, so every rank
+starts from the same init (as tts_tpu's init before replication). Rank 0
+alone prints, logs and writes checkpoints.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,11 +35,14 @@ from tts_tpu_torch.data import TTSDataset, load_meta_data
 from tts_tpu_torch.data.formatters import get_speakers
 from tts_tpu_torch.models.glow_tts import GlowTTS, apply_ddi, glow_tts_loss
 from tts_tpu_torch.models.registry import setup_model
+from tts_tpu_torch.parallel.data_parallel import rank_seed, replicate
+from tts_tpu_torch.parallel.mesh import data_mesh, is_primary, rank_and_world
 from tts_tpu_torch.text import num_symbols
 from tts_tpu_torch.train import checkpoint as ckpt_io
 from tts_tpu_torch.train.optim import RAdamW, make_optimizer
 from tts_tpu_torch.utils.generic import KeepAverage, StepTimer
-from tts_tpu_torch.utils.loggers import ConsoleLogger, TensorboardLogger
+from tts_tpu_torch.utils.loggers import (ConsoleLogger, NullLogger,
+                                        TensorboardLogger)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -70,10 +81,14 @@ def train_step(model: GlowTTS, optimizer: RAdamW,
 class GlowTTSTrainer:
     def __init__(self, config: Dict[str, Any], output_path: str,
                  device: DeviceLike = None):
-        if config.get("use_data_parallel", False):
-            raise NotImplementedError("the data-parallel Glow step is not "
-                                      "ported yet")
         self.device = resolve_device(device)
+        self.mesh = data_mesh(config)
+        self.rank, self.world = (rank_and_world() if self.mesh is not None
+                                 else (0, 1))
+        self.primary = is_primary()
+        if config.get("batch_size", 32) % self.world:
+            raise ValueError(f"batch_size {config.get('batch_size', 32)} "
+                             f"does not split over {self.world} ranks")
         self.c = config
         self.output_path = output_path
         os.makedirs(output_path, exist_ok=True)
@@ -93,8 +108,12 @@ class GlowTTSTrainer:
             torch.manual_seed(seed)
             model = setup_model(num_chars, self.num_speakers, config)
         self.model = model.to(self.device)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            seed if self.mesh is None else rank_seed(seed, self.rank))
         self.model.set_generator(self.generator)
+        self._dp_step = None
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         self.optimizer = make_optimizer(
             self.model,
             lr=config.get("lr", 1e-3),
@@ -103,8 +122,9 @@ class GlowTTSTrainer:
             use_noam=config.get("noam_schedule", True),
             warmup_steps=config.get("warmup_steps", 4000))
 
-        self.console = ConsoleLogger()
-        self.tb = TensorboardLogger(output_path, "glow_tts")
+        self.console = ConsoleLogger() if self.primary else NullLogger()
+        self.tb = (TensorboardLogger(output_path, "glow_tts")
+                   if self.primary else NullLogger())
         self.global_step = 0
         self.epoch = 0
         self.best_loss = float("inf")
@@ -130,14 +150,14 @@ class GlowTTSTrainer:
         self.model.train()
         start = time.time()
         timer = StepTimer()
-        for batch in ds.batches(c.get("batch_size", 32), shuffle=True,
-                                seed=self.epoch):
+        bs = c.get("batch_size", 32)
+        for batch in ds.batches(bs, shuffle=True, seed=self.epoch,
+                                part=self.rank, parts=self.world):
             loader_time = timer.lap()
             db = batch_to_device(batch, self.device)
             if not self.initialized:
-                apply_ddi(self.model, db)
-                self.initialized = True
-            losses = train_step(self.model, self.optimizer, db)
+                self.data_dependent_init(db)
+            losses = self.step(db)
             losses["step_time"] = timer.lap()
             losses["loader_time"] = loader_time
             keep.update_values({f"avg_{k}": v for k, v in losses.items()})
@@ -151,10 +171,37 @@ class GlowTTSTrainer:
                                            keep.avg_values)
         return keep.avg_values
 
+    def data_dependent_init(self, batch: Dict[str, torch.Tensor]) -> None:
+        """ActNorm's data-dependent init on the first batch; data-parallel,
+        on the first global batch collated whole, then rank 0's parameters
+        on every rank."""
+        if self.mesh is not None:
+            ds = self.dataset
+            sel = ds.batch_indices(self.c.get("batch_size", 32),
+                                   shuffle=True, seed=self.epoch)[0]
+            batch = batch_to_device(ds.collate([ds[i] for i in sel]),
+                                    self.device)
+        apply_ddi(self.model, batch)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
+        self.initialized = True
+
+    def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        if self.mesh is None:
+            return train_step(self.model, self.optimizer, batch)
+        if self._dp_step is None:
+            from tts_tpu_torch.parallel import make_glow_dp_train_step
+            self._dp_step = make_glow_dp_train_step(
+                self.model, self.optimizer, self.mesh,
+                generator=self.generator)
+        return self._dp_step(batch)
+
     def fit(self) -> None:
         for self.epoch in range(self.epoch, self.c["epochs"]):
             self.console.print_epoch_start(self.epoch, self.c["epochs"])
             stats = self.train_epoch()
+            if not self.primary:
+                continue
             self.best_loss = ckpt_io.save_best_model(
                 stats.get("avg_loss", float("inf")), self.best_loss,
                 self.output_path, model=self.model, optimizer=self.optimizer,
@@ -163,8 +210,9 @@ class GlowTTSTrainer:
             self.save_checkpoint()
         self.tb.close()
 
-    def save_checkpoint(self) -> str:
-        return ckpt_io.save_checkpoint(
+    def save_checkpoint(self) -> Optional[str]:
+        """Rank 0 writes; with a process group every rank waits for it."""
+        return ckpt_io.save_checkpoint_multihost(
             self.output_path, model=self.model, optimizer=self.optimizer,
             step=self.global_step, epoch=self.epoch, config=self.c)
 

@@ -39,18 +39,27 @@ forward (``torch.func.functional_call``) on a bfloat16 mel; the outputs
 return to float32 before the loss, and the float32 masters take the
 gradients. BatchNorm's running statistics stay float32. Weights start from
 ``config["seed"]`` (54321 by default); every dropout mask comes from the
-trainer's ``torch.Generator``. ``use_data_parallel`` on one device is a
-world of one: the single-device step runs. More devices are not ported
-yet. In mixed precision the layers from the encoder's RNN on compute in
-float32 on the bfloat16-rounded weights, as flax's float32 RNN carries
-make tts_tpu's do (``mixed_params``); external d-vectors stay float32.
+trainer's ``torch.Generator``. In mixed precision the layers from the
+encoder's RNN on compute in float32 on the bfloat16-rounded weights, as
+flax's float32 RNN carries make tts_tpu's do (``mixed_params``); external
+d-vectors stay float32.
+
+With ``use_data_parallel`` in a process group (``bin/distribute.py``
+launches one rank per GPU) the step is ``parallel.make_dp_train_step``:
+each rank trains on its stride shard of the items at ``batch_size`` a
+rank (``num_shards`` / ``shard_id``, as tts_tpu's trainer shards by
+process), its dropout generator seeded from (seed, rank), gradients,
+losses and BatchNorm's running statistics averaged over the ranks. Rank 0
+alone prints, logs, evaluates, runs the test sentences (B7 and B8 there)
+and writes checkpoints; every rank waits at a barrier after a write.
+Without a process group ``use_data_parallel`` trains on the one device.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -64,13 +73,16 @@ from tts_tpu_torch.data.formatters import get_speakers
 from tts_tpu_torch.infer.synthesis import synthesis
 from tts_tpu_torch.losses.tts_losses import tacotron_loss
 from tts_tpu_torch.models.registry import setup_model
+from tts_tpu_torch.parallel.data_parallel import rank_seed, replicate
+from tts_tpu_torch.parallel.mesh import data_mesh, is_primary, rank_and_world
 from tts_tpu_torch.text import num_symbols
 from tts_tpu_torch.train import checkpoint as ckpt_io
 from tts_tpu_torch.train.gan import cast_params
 from tts_tpu_torch.train.optim import (RAdamW, gradual_training_schedule,
                                        make_optimizer)
 from tts_tpu_torch.utils.generic import KeepAverage, StepTimer
-from tts_tpu_torch.utils.loggers import ConsoleLogger, TensorboardLogger
+from tts_tpu_torch.utils.loggers import (ConsoleLogger, NullLogger,
+                                        TensorboardLogger)
 from tts_tpu_torch.utils.speakers import load_speaker_mapping
 from tts_tpu_torch.utils.visual import (figures_available, plot_alignment,
                                         plot_spectrogram)
@@ -134,6 +146,20 @@ def forward(model: torch.nn.Module, batch: Batch,
     return {key: value.float() for key, value in out.items()}
 
 
+def loss_kwargs_from_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """``tacotron_loss``'s switches and weights from a training config (r
+    aside: the step's)."""
+    return dict(
+        loss_masking=config.get("loss_masking", True),
+        seq_len_norm=config.get("seq_len_norm", False),
+        decoder_alpha=config.get("decoder_loss_alpha", 0.25),
+        postnet_alpha=config.get("postnet_loss_alpha", 0.25),
+        ga_alpha=config.get("ga_alpha", 0.0),
+        decoder_diff_spec_alpha=config.get("decoder_diff_spec_alpha", 0.0),
+        postnet_diff_spec_alpha=config.get("postnet_diff_spec_alpha", 0.0),
+        use_linear=config["model"].lower() == "tacotron")
+
+
 def train_step(model: torch.nn.Module, optimizer: RAdamW, batch: Batch,
                loss_kwargs: Dict[str, Any],
                dtype: torch.dtype = torch.float32) -> Dict[str, float]:
@@ -162,15 +188,10 @@ class TTSTrainer:
             raise ValueError(f"this trainer trains Tacotron and Tacotron2, "
                              f"not {config['model']}")
         self.device = resolve_device(device)
-        if config.get("use_data_parallel", False):
-            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                     else 1)
-            if n_dev > 1:
-                raise NotImplementedError(
-                    f"data-parallel Tacotron2 training over {n_dev} devices "
-                    f"is not ported yet")
-            print(" > use_data_parallel: a world of one device, the "
-                  "single-device step runs")
+        self.mesh = data_mesh(config)
+        self.rank, self.world = (rank_and_world() if self.mesh is not None
+                                 else (0, 1))
+        self.primary = is_primary()
         self.c = config
         self.output_path = output_path
         os.makedirs(output_path, exist_ok=True)
@@ -203,8 +224,12 @@ class TTSTrainer:
                 self.num_speakers, config,
                 speaker_embedding_dim=self.speaker_embedding_dim)
         self.model = model.to(self.device)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            seed if self.mesh is None else rank_seed(seed, self.rank))
         self.model.set_generator(self.generator)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
+        self._dp_steps: Dict[int, Any] = {}
         self.r = self.model.r
         self.optimizer = make_optimizer(
             self.model,
@@ -213,22 +238,13 @@ class TTSTrainer:
             weight_decay=config.get("wd", 0.0),
             use_noam=config.get("noam_schedule", False),
             warmup_steps=config.get("warmup_steps", 4000))
-        self.loss_kwargs = dict(
-            loss_masking=config.get("loss_masking", True),
-            seq_len_norm=config.get("seq_len_norm", False),
-            decoder_alpha=config.get("decoder_loss_alpha", 0.25),
-            postnet_alpha=config.get("postnet_loss_alpha", 0.25),
-            ga_alpha=config.get("ga_alpha", 0.0),
-            decoder_diff_spec_alpha=config.get("decoder_diff_spec_alpha",
-                                               0.0),
-            postnet_diff_spec_alpha=config.get("postnet_diff_spec_alpha",
-                                               0.0),
-            use_linear=config["model"].lower() == "tacotron")
+        self.loss_kwargs = loss_kwargs_from_config(config)
         self.dtype = (torch.bfloat16 if config.get("mixed_precision", False)
                       else torch.float32)
 
-        self.console = ConsoleLogger()
-        self.tb = TensorboardLogger(output_path, config["model"])
+        self.console = ConsoleLogger() if self.primary else NullLogger()
+        self.tb = (TensorboardLogger(output_path, config["model"])
+                   if self.primary else NullLogger())
         self.said_no_figures = False
         self.global_step = 0
         self.epoch = 0
@@ -271,13 +287,17 @@ class TTSTrainer:
         start = time.time()
         timer = StepTimer()
         self.console.print_train_start()
-        n_batches = len(ds) // batch_size
+        shard = dict(num_shards=self.world, shard_id=self.rank)
+        n_batches = len(ds.batch_indices(batch_size, **shard))
         for i, batch in enumerate(ds.batches(batch_size, shuffle=True,
-                                             seed=self.epoch)):
+                                             seed=self.epoch, **shard)):
             loader_time = timer.lap()
-            losses = train_step(self.model, self.optimizer,
-                                batch_to_device(batch, self.device),
-                                loss_kwargs, self.dtype)
+            db = batch_to_device(batch, self.device)
+            if self.mesh is None:
+                losses = train_step(self.model, self.optimizer, db,
+                                    loss_kwargs, self.dtype)
+            else:
+                losses = self.dp_step(loss_kwargs)(db)
             losses["step_time"] = timer.lap()
             losses["loader_time"] = loader_time
             keep.update_values({f"avg_{k}": v for k, v in losses.items()})
@@ -295,6 +315,16 @@ class TTSTrainer:
                                            time.time() - start,
                                            keep.avg_values)
         return keep.avg_values
+
+    def dp_step(self, loss_kwargs: Dict[str, Any]):
+        """The data-parallel step at the current r, built once per r."""
+        if self.r not in self._dp_steps:
+            from tts_tpu_torch.parallel import make_dp_train_step
+            self._dp_steps[self.r] = make_dp_train_step(
+                self.model, self.optimizer, self.mesh, loss_kwargs,
+                generator=self.generator,
+                mixed_precision=self.dtype == torch.bfloat16)
+        return self._dp_steps[self.r]
 
     @torch.no_grad()
     def eval_epoch(self) -> Dict[str, float]:
@@ -355,6 +385,8 @@ class TTSTrainer:
         for self.epoch in range(self.epoch, c["epochs"]):
             self.console.print_epoch_start(self.epoch, c["epochs"])
             self.train_epoch()
+            if not self.primary:
+                continue
             if c.get("run_eval", True):
                 stats = self.eval_epoch()
                 self.best_loss = ckpt_io.save_best_model(
@@ -369,8 +401,9 @@ class TTSTrainer:
             self.save_checkpoint()
         self.tb.close()
 
-    def save_checkpoint(self) -> str:
-        return ckpt_io.save_checkpoint(
+    def save_checkpoint(self) -> Optional[str]:
+        """Rank 0 writes; with a process group every rank waits for it."""
+        return ckpt_io.save_checkpoint_multihost(
             self.output_path, model=self.model, optimizer=self.optimizer,
             step=self.global_step, epoch=self.epoch, config=self.c, r=self.r)
 

@@ -50,6 +50,30 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
             .contiguous()}
 
 
+def make_gan_step(c: Dict[str, Any], gen: torch.nn.Module,
+                  disc: torch.nn.Module, device: torch.device,
+                  mesh=None) -> GANTrainStep:
+    """The config's GAN step on ``gen`` and ``disc``: their optimizers, the
+    loss switches and weights, the noise (on ``device``) and crop (host)
+    generators seeded from ``config["seed"]``, bfloat16 forwards with
+    ``mixed_precision``; data-parallel over ``mesh`` where given."""
+    seed = c.get("seed", 54321)
+    return GANTrainStep(
+        gen, disc,
+        make_optimizer(gen, lr=c.get("lr_gen", 1e-4),
+                       grad_clip=c.get("grad_clip", 10.0)),
+        make_optimizer(disc, lr=c.get("lr_disc", 1e-4),
+                       grad_clip=c.get("grad_clip", 10.0)),
+        hop_len=c["audio"].get("hop_length", 256),
+        conv_pad=c.get("conv_pad", 0),
+        use_pqmf="multiband" in c["generator_model"].lower(),
+        generator=torch.Generator(device).manual_seed(seed),
+        crop_generator=torch.Generator().manual_seed(seed),
+        gen_loss_kwargs={k: c[k] for k in GEN_LOSS_KEYS if k in c},
+        disc_loss_kwargs={k: c[k] for k in DISC_LOSS_KEYS if k in c},
+        mixed_precision=c.get("mixed_precision", False), mesh=mesh)
+
+
 class VocoderTrainer:
     def __init__(self, config: Dict[str, Any], output_path: str,
                  device: DeviceLike = None):
@@ -68,24 +92,10 @@ class VocoderTrainer:
             disc = setup_discriminator(c)
         self.gen = gen.to(self.device).train()
         self.disc = disc.to(self.device).train()
-        self.opt_G = make_optimizer(self.gen, lr=c.get("lr_gen", 1e-4),
-                                    grad_clip=c.get("grad_clip", 10.0))
-        self.opt_D = make_optimizer(self.disc, lr=c.get("lr_disc", 1e-4),
-                                    grad_clip=c.get("grad_clip", 10.0))
-        self.generator = torch.Generator(self.device).manual_seed(
-            c.get("seed", 54321))
-        self.crop_generator = torch.Generator().manual_seed(
-            c.get("seed", 54321))
-        # config "mixed_precision": bfloat16 forwards, float32 masters
-        self.step = GANTrainStep(
-            self.gen, self.disc, self.opt_G, self.opt_D,
-            hop_len=c["audio"].get("hop_length", 256),
-            conv_pad=c.get("conv_pad", 0),
-            use_pqmf="multiband" in c["generator_model"].lower(),
-            generator=self.generator, crop_generator=self.crop_generator,
-            gen_loss_kwargs={k: c[k] for k in GEN_LOSS_KEYS if k in c},
-            disc_loss_kwargs={k: c[k] for k in DISC_LOSS_KEYS if k in c},
-            mixed_precision=c.get("mixed_precision", False))
+        self.step = make_gan_step(c, self.gen, self.disc, self.device)
+        self.opt_G, self.opt_D = self.step.opt_G, self.step.opt_D
+        self.generator = self.step.generator
+        self.crop_generator = self.step.crop_generator
         self.dataset = GANDataset(
             self.ap, self.train_items, seq_len=c.get("seq_len", 8192),
             hop_len=c["audio"].get("hop_length", 256),

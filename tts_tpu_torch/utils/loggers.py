@@ -120,3 +120,11 @@ class TensorboardLogger:
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()
+
+
+class NullLogger:
+    """A console or TensorBoard logger that does nothing: what a
+    data-parallel rank other than 0 logs through."""
+
+    def __getattr__(self, name: str):
+        return lambda *args, **kwargs: None
